@@ -1,0 +1,144 @@
+"""GPU-only tests of the port: the CUDA FAST kernel bit for bit against its
+plain version, and the fused step on the card against the same step on
+the CPU.  Every test here skips without a CUDA device.  This file imports
+no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
+
+Tolerances: the kernel is held to atol=0 (it only subtracts, compares and
+takes mins and maxes).  The step on the card sums in another order (float
+atomics in index_add_, other reduction trees, float64 normal equations in
+the LM) and resizes the pyramid with another kernel (~1e-6 apart, which
+reorders tied FAST scores), so it is held to the bounds the JAX-vs-port
+slice test uses: the same active object slots, T_cw within 1e-3 m and
+0.01 deg per frame.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from vdo_slam_tpu_torch.config import KITTI, ShapeConfig, VDOConfig
+from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
+from vdo_slam_tpu_torch.io.synthetic import make_scene
+from vdo_slam_tpu_torch.ops import fast
+from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL, fast_score_pair
+from vdo_slam_tpu_torch.parallel.multistream import (make_frame_step,
+                                                     make_stream_state)
+from vdo_slam_tpu_torch.pipeline.fused import FusedTracker
+
+pytestmark = pytest.mark.cuda
+TH_INI, TH_MIN = 20 / 255.0, 7 / 255.0
+
+
+@pytest.fixture(autouse=True)
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+def _binary(shape, seed):
+    return (np.random.default_rng(seed).random(shape) > 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,seed", [((120, 200), 0), ((97, 131), 1),
+                                        ((3, 64, 150), 2), ((7, 7), 3)])
+def test_kernel_equals_plain(shape, seed):
+    g = torch.from_numpy(_binary(shape, seed)).cuda()
+    before = KERNEL.launches
+    k_ini, k_min = fast_score_pair(g, TH_INI, TH_MIN)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert torch.equal(k_ini, fast.fast_score(g, TH_INI))
+    assert torch.equal(k_min, fast.fast_score(g, TH_MIN))
+
+
+def test_kernel_on_pyramid_and_threshold_ties():
+    frame = make_scene(num_frames=2, width=320, height=240, seed=3).rgb[0]
+    for g in fast.pyramid(torch.from_numpy(frame).cuda()):
+        k_ini, k_min = fast_score_pair(g, TH_INI, TH_MIN)
+        torch.cuda.synchronize()
+        assert torch.equal(k_ini, fast.fast_score(g, TH_INI))
+        assert torch.equal(k_min, fast.fast_score(g, TH_MIN))
+    # differences landing exactly on fp32(20/255): compared as float
+    th = float(np.float32(TH_INI))
+    img = np.zeros((16, 16), np.float32)
+    img[:, 8:] = th
+    g = torch.from_numpy(img).cuda()
+    assert torch.equal(fast_score_pair(g, TH_INI, TH_MIN)[0],
+                       fast.fast_score(g, TH_INI))
+
+
+def test_kernel_rejects_cpu_only_layouts():
+    with pytest.raises(ValueError):
+        fast_score_pair(torch.zeros(20, 40, device="cuda")[:, ::2], TH_INI,
+                        TH_MIN)
+
+
+class NumpyDraws:
+    """The same draws on either device, from a numpy generator."""
+
+    def __init__(self, seed, device):
+        self.rng = np.random.default_rng(seed)
+        self.device = device
+
+    def _u(self, shape):
+        return torch.from_numpy(self.rng.random(shape, dtype=np.float32)).to(
+            self.device)
+
+    def object_priority(self, n):
+        return self._u((n,))
+
+    def renew_priority(self, n):
+        return self._u((n,))
+
+    def camera_picks(self, n_samples, n_valid):
+        u = self._u((n_samples, 3))
+        return torch.minimum((u * n_valid).long(), n_valid - 1)
+
+    def object_picks(self, n_samples, n_valid):
+        u = self._u(tuple(n_valid.shape) + (n_samples, 3))
+        n = n_valid[:, None, None]
+        return torch.minimum((u * n).long(), n - 1)
+
+
+def test_step_on_card_matches_cpu():
+    scene = make_scene(num_frames=6, width=320, height=240, num_objects=2,
+                       seed=3)
+    cfg = VDOConfig()
+    cfg = cfg.replace(
+        camera=dataclasses.replace(cfg.camera, fx=320.0, fy=320.0, cx=160.0,
+                                   cy=120.0, width=320, height=240, bf=40.0),
+        tracking=dataclasses.replace(cfg.tracking, dataset=KITTI,
+                                     depth_map_factor=1.0,
+                                     boundary_shrink_row=8,
+                                     boundary_shrink_col=12,
+                                     min_obj_points=40, min_init_inliers=20),
+        shapes=ShapeConfig(max_static=600, max_dynamic=2048, max_objects=8,
+                           ransac_samples=128),
+        frontend=dataclasses.replace(cfg.frontend, n_features=1200,
+                                     n_levels=3))
+    ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
+    poses = {}
+    for dev in ("cpu", "cuda"):
+        step = make_frame_step(cfg, dev)
+        stager = FusedTracker(cfg, device=dev)
+        draws = NumpyDraws(0, dev)
+        st = make_stream_state(cfg, dev)
+        poses[dev] = []
+        for f in range(len(ds)):
+            inputs = stager.device_inputs(ds[f])
+            inputs.pop("_T_cw_gt_host")
+            st, m = step(st, inputs, draws, f > 0)
+            act = m["slot_active"].cpu().numpy()
+            poses[dev].append((st.frame.T_cw.cpu().numpy().astype(np.float64),
+                               set(m["slot_sem"].cpu().numpy()[act].tolist())))
+    for (Tc, sc), (Tg, sg) in zip(poses["cpu"], poses["cuda"]):
+        assert sc == sg
+        E = np.linalg.inv(Tc) @ Tg
+        s = np.array([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0], E[1, 0] - E[0, 1]])
+        dt = np.linalg.norm(Tg[:3, 3] - Tc[:3, 3])
+        dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
+        assert dt < 1e-3 and dr < 0.01, (dt, dr)

@@ -1,0 +1,5 @@
+from .map_state import MapState
+from .state import DynamicBank, FrameState, StaticBank
+from .system import System
+
+__all__ = ["MapState", "FrameState", "StaticBank", "DynamicBank", "System"]

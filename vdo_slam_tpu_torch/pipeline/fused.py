@@ -1,0 +1,295 @@
+"""Fused-mode tracker — port of vdo_slam_tpu/pipeline/fused.py.
+
+Drives the fused frame step (parallel/multistream.py) one frame per call
+and archives every frame into MapState on the host.  Each frame's outputs
+are packed on the device into one float32 vector and come back in one
+device-to-host copy, started right after the step is queued; the previous
+frame is archived while the device works, so `grab_frame` reports the
+frame before the one it was given and `flush` reports the last.
+
+Left out (each listed in ROADMAP.md): the packed wire, chunked multi-frame
+steps, batched drains, the key ring, the stage-time probe and the window-BA
+trigger.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..config import OMD, VDOConfig
+from ..io.dataset import FrameData
+from ..parallel.multistream import make_frame_step, make_stream_state
+from .draws import TorchDraws
+from .map_state import MapState
+from .tracking import _np_inv, obj_pose_parsing_kt, obj_pose_parsing_ox
+
+# cap on per-frame GT-object semantic labels fed to the bObjStat gate
+_K_GT = 32
+
+
+def _rows_sems(rows) -> set[int]:
+    r = np.asarray(rows, np.float32).reshape(-1, 10)
+    return {int(x) for x in r[:, 1]}
+
+
+def pack_outputs(state, metrics) -> torch.Tensor:
+    """The frame's outputs as ONE float32 vector, in the layout of the JAX
+    package's _pack_outputs (fused.py:43-78).  Exact: every int < 2^24."""
+    fs = state.frame
+    s, d, m = fs.static, fs.dynamic, metrics
+    f32 = torch.float32
+
+    def col(x):
+        return x.to(f32)[:, None]
+
+    stat = torch.cat([s.xy, s.depth[:, None], s.point_w, col(s.valid),
+                      col(s.assoc)], dim=1)                        # (B, 8)
+    dyn = torch.cat([d.xy, d.depth[:, None], d.point_w, col(d.valid),
+                     col(d.assoc), col(d.obj_label), col(d.sem_label)],
+                    dim=1)                                         # (D, 10)
+    slots = torch.cat([
+        col(m["slot_sem"]), col(m["slot_model"]), col(m["slot_active"]),
+        m["slot_H"].reshape(-1, 16), m["slot_centroid"],
+        col(m["slot_n_init"]), col(m["slot_n_inlier"]), col(m["speeds"]),
+    ], dim=1)                                                      # (K, 25)
+    mats = torch.stack([fs.T_cw, fs.velocity])                     # (2, 4, 4)
+    scal = torch.stack([m["t_rpe"].to(f32), m["r_rpe"].to(f32),
+                        m["n_inlier"].to(f32), m["n_objects"].to(f32),
+                        m["used_motion_model"].to(f32)])           # (5,)
+    return torch.cat([stat.reshape(-1), dyn.reshape(-1), slots.reshape(-1),
+                      mats.reshape(-1), scal])
+
+
+def unpack_host(vec: np.ndarray, B: int, D: int, K: int) -> dict:
+    """Inverse of pack_outputs on the host vector -> the archive's view."""
+    o = 0
+    stat = vec[o:o + B * 8].reshape(B, 8); o += B * 8
+    dyn = vec[o:o + D * 10].reshape(D, 10); o += D * 10
+    slots = vec[o:o + K * 25].reshape(K, 25); o += K * 25
+    mats = vec[o:o + 32].reshape(2, 4, 4); o += 32
+    scal = vec[o:o + 5]
+    host_stat = (stat[:, 0:2], stat[:, 2], stat[:, 3:6],
+                 stat[:, 6] > 0.5, stat[:, 7].astype(np.int32))
+    host_dyn = (dyn[:, 0:2], dyn[:, 2], dyn[:, 3:6], dyn[:, 6] > 0.5,
+                dyn[:, 7].astype(np.int32), dyn[:, 8].astype(np.int32),
+                dyn[:, 9].astype(np.int32))
+    metrics = {
+        "t_rpe": scal[0], "r_rpe": scal[1], "n_inlier": scal[2],
+        "n_objects": scal[3], "used_motion_model": scal[4],
+        "slot_sem": slots[:, 0].astype(np.int32),
+        "slot_model": slots[:, 1].astype(np.int32),
+        "slot_active": slots[:, 2] > 0.5,
+        "slot_H": slots[:, 3:19].reshape(-1, 4, 4),
+        "slot_centroid": slots[:, 19:22],
+        "slot_n_init": slots[:, 22].astype(np.int32),
+        "slot_n_inlier": slots[:, 23].astype(np.int32),
+        "speeds": slots[:, 24],
+    }
+    return {"stat": host_stat, "dyn": host_dyn, "T_cw": mats[0],
+            "velocity": mats[1], "metrics": metrics}
+
+
+class FusedTracker:
+    """Single-stream tracker built on the fused frame step."""
+
+    def __init__(self, cfg: VDOConfig, game_map: MapState | None = None,
+                 device="cpu"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.map = game_map if game_map is not None else MapState()
+        self.step = make_frame_step(cfg, self.device)
+        self.state = make_stream_state(cfg, self.device)
+        self.initialized = False  # the JAX state's flag, kept on the host
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(cfg.seed)
+        self.draws = TorchDraws(generator)
+        self.frame_id = 0
+        self.origin_inv: np.ndarray | None = None
+        self._stage_last_sems: set[int] | None = None
+        self._last_obj_rows = np.zeros((0, 10), np.float32)
+        self._last_T_wc_gt = np.eye(4, dtype=np.float32)
+        # per-frame stage times archived with every frame: the JAX tracker
+        # fills them from its probe (not ported), so they stay zero
+        self._stage_ms = np.zeros(5, np.float32)
+        self._pending = None
+
+    def _gt_pose(self, raw):
+        # rebased so the first frame's GT is exactly I, even mid-sequence
+        if self.origin_inv is None:
+            self.origin_inv = np.asarray(raw, np.float32)
+        return _np_inv(np.asarray(raw, np.float32)) @ self.origin_inv
+
+    def _stage_gt_sems(self, fd: FrameData) -> np.ndarray:
+        """(K_GT,) -1-padded sem labels with GT in BOTH the previous and
+        this frame — the bObjStat gate's input (Tracking.cc:831-841).
+        Called once per frame, in frame order."""
+        cur = _rows_sems(fd.obj_gt_rows)
+        last = self._stage_last_sems
+        both = sorted(cur & last)[:_K_GT] if last is not None else []
+        self._stage_last_sems = cur
+        out = np.full((_K_GT,), -1, np.int32)
+        out[:len(both)] = both
+        return out
+
+    def _gt_obj(self, rows, T_wc_gt):
+        out = {}
+        for r in np.asarray(rows, np.float32).reshape(-1, 10):
+            if self.cfg.tracking.dataset == OMD:
+                out[int(r[1])] = obj_pose_parsing_ox(r, self.origin_inv)
+            else:
+                out[int(r[1])] = T_wc_gt @ obj_pose_parsing_kt(r)
+        return out
+
+    def device_inputs(self, fd: FrameData) -> dict:
+        """A frame's tensors on the device, plus its host GT pose."""
+        T_cw_gt = self._gt_pose(fd.pose_gt_raw)
+
+        def put(x, dtype):
+            t = torch.from_numpy(np.ascontiguousarray(x, dtype=dtype))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            return t
+
+        return {
+            "rgb": put(fd.rgb, np.float32),
+            "depth_raw": put(fd.depth_raw, np.float32),
+            "flow": put(fd.flow, np.float32),
+            "seg": put(fd.mask, np.int32),
+            "T_cw_gt": put(T_cw_gt, np.float32),
+            "gt_sems": put(self._stage_gt_sems(fd), np.int32),
+            "_T_cw_gt_host": T_cw_gt,
+        }
+
+    def grab_frame(self, fd: FrameData) -> dict:
+        """Queue this frame's step and its output copy, then archive the
+        PREVIOUS frame; returns that frame's report (or a placeholder with
+        "pipelining" on the first call)."""
+        t0 = time.perf_counter()
+        inputs = self.device_inputs(fd)
+        T_cw_gt = inputs.pop("_T_cw_gt_host")
+        self.state, metrics = self.step(self.state, inputs, self.draws,
+                                        self.initialized)
+        self.initialized = True
+        vec = pack_outputs(self.state, metrics)
+        if self.device.type == "cuda":
+            host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+            host.copy_(vec, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            host, done = vec, None
+        rep_prev = self._drain_pending()
+        self._pending = (fd, T_cw_gt, self.frame_id, host, done, t0)
+        self.frame_id += 1
+        if rep_prev is None:
+            rep_prev = {"frame_id": -1, "pipelining": True}
+        return rep_prev
+
+    def _drain_pending(self):
+        if self._pending is None:
+            return None
+        fd, T_cw_gt, fid, host, done, t0 = self._pending
+        self._pending = None
+        if done is not None:
+            done.synchronize()
+        return self._finish_frame(fd, T_cw_gt, fid, host.numpy(), t0)
+
+    def flush(self) -> dict | None:
+        """Archive the last in-flight frame (call once after the loop)."""
+        return self._drain_pending()
+
+    def _finish_frame(self, fd, T_cw_gt, fid, vec_np, t0):
+        sh = self.cfg.shapes
+        host = unpack_host(vec_np, sh.max_static, sh.max_dynamic,
+                           sh.max_objects)
+        self._archive(fd, host, T_cw_gt, fid)
+        hm = host["metrics"]
+        return {
+            "frame_id": fid,
+            "T_cw": host["T_cw"],
+            "t_rpe": float(hm["t_rpe"]),
+            "r_rpe": float(hm["r_rpe"]),
+            "n_inlier_cam": int(hm["n_inlier"]),
+            "n_objects": int(hm["n_objects"]),
+            "wall_time": time.perf_counter() - t0,
+        }
+
+    def _archive(self, fd: FrameData, host: dict, T_cw_gt, fid: int):
+        """Append one frame to MapState (fused.py:541-636)."""
+        m = self.map
+        s_xy, s_d, s_3d, s_v, s_a = host["stat"]
+        d_xy, d_d, d_3d, d_v, d_a, d_ol, d_sl = host["dyn"]
+        metrics = host["metrics"]
+        m.stat_xy.append(s_xy)
+        m.stat_depth.append(s_d)
+        m.stat_3d.append(s_3d)
+        m.stat_valid.append(s_v)
+        m.dyn_xy.append(d_xy)
+        m.dyn_depth.append(d_d)
+        m.dyn_3d.append(d_3d)
+        m.dyn_valid.append(d_v)
+        m.dyn_obj_label.append(d_ol)
+        m.dyn_sem_label.append(d_sl)
+        T_wc = _np_inv(host["T_cw"])
+        m.cam_pose.append(T_wc)
+        m.cam_pose_rf.append(T_wc.copy())
+        m.cam_pose_gt.append(_np_inv(np.asarray(T_cw_gt)))
+        m.timings.append(self._stage_ms.copy())
+
+        T_wc_gt = _np_inv(np.asarray(T_cw_gt))
+        if fid == 0:
+            self._last_obj_rows = fd.obj_gt_rows
+            self._last_T_wc_gt = T_wc_gt
+            return
+        m.stat_assoc.append(s_a)
+        m.dyn_assoc.append(d_a)
+
+        gt_cur = self._gt_obj(fd.obj_gt_rows, T_wc_gt)
+        gt_last = self._gt_obj(self._last_obj_rows, self._last_T_wc_gt)
+        cam_motion = _np_inv(host["velocity"])
+        mots = [cam_motion]
+        # GT camera motion = Tcw_gt_last @ Twc_gt_cur (Tracking.cc:1136)
+        mots_gt = [_np_inv(self._last_T_wc_gt) @ T_wc_gt]
+        poses_pre = [cam_motion]
+        labels, sems, stats = [0], [0], [True]
+        sp_gt, sp_est = [1.0], [0.0]
+        cents = [np.zeros(3, np.float32)]
+        for k in range(metrics["slot_active"].shape[0]):
+            sem = int(metrics["slot_sem"][k])
+            # a slot without GT in both frames was already deactivated on
+            # the device (bObjStat); the check stays as a defensive skip
+            if (not metrics["slot_active"][k] or sem not in gt_cur
+                    or sem not in gt_last):
+                continue
+            L_w_p = gt_last[sem]
+            L_w_c = gt_cur[sem]
+            H_p_c = L_w_c @ _np_inv(L_w_p)
+            v_gt = (H_p_c[:3, 3]
+                    - (np.eye(3) - H_p_c[:3, :3]) @ metrics["slot_centroid"][k])
+            mots.append(metrics["slot_H"][k])
+            mots_gt.append(_np_inv(L_w_p) @ L_w_c)
+            poses_pre.append(L_w_p)
+            labels.append(int(metrics["slot_model"][k]))
+            sems.append(sem)
+            stats.append(True)
+            sp_gt.append(float(np.linalg.norm(v_gt) * 36.0))
+            sp_est.append(float(metrics["speeds"][k]))
+            cents.append(metrics["slot_centroid"][k])
+
+        m.rigid_motion.append(mots)
+        m.rigid_motion_rf.append([x.copy() for x in mots])
+        m.rigid_motion_gt.append(mots_gt)
+        m.obj_pose_pre.append(poses_pre)
+        m.rm_label.append(labels)
+        m.sem_label.append(sems)
+        m.obj_stat.append(stats)
+        m.speed_gt.append(sp_gt)
+        m.speed_est.append(sp_est)
+        m.centres.append(cents)
+        m.sm_label_gt.append(
+            [int(r[1]) for r in np.asarray(fd.obj_gt_rows).reshape(-1, 10)])
+        self._last_obj_rows = fd.obj_gt_rows
+        self._last_T_wc_gt = T_wc_gt
