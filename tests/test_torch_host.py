@@ -195,6 +195,25 @@ class TestRefusals:
                    mode="fused")
 
 
+def test_entry_points_default_to_the_card():
+    """With no device given, System (and the FusedTracker, frame step and
+    stream state under it) runs on "cuda"; without a card it raises rather
+    than run on the CPU."""
+    import torch
+
+    from vdo_slam_tpu_torch.pipeline import System
+
+    args = (pconfig.VDOConfig(),)
+    kwargs = dict(enable_local_ba=False, enable_global_ba=False, mode="fused")
+    if torch.cuda.is_available():
+        sysm = System(*args, **kwargs)
+        assert sysm.tracker.device.type == "cuda"
+        assert sysm.tracker.state.frame.T_cw.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            System(*args, **kwargs)
+
+
 NO_JAX = r"""
 import sys
 sys.modules["jax"] = None

@@ -1,7 +1,8 @@
 """GPU-only tests of the port: the CUDA FAST kernel bit for bit against its
-plain version, and the fused step on the card against the same step on
-the CPU.  Every test here skips without a CUDA device.  This file imports
-no JAX, so it runs on a machine without it:
+plain version (one level and a whole pyramid per launch), and the fused
+step on the card against the same step on the CPU.  Every test here
+skips without a CUDA device.  This file imports no JAX, so it runs on a
+machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -24,7 +25,9 @@ from vdo_slam_tpu_torch.config import KITTI, ShapeConfig, VDOConfig
 from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
 from vdo_slam_tpu_torch.io.synthetic import make_scene
 from vdo_slam_tpu_torch.ops import fast
-from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL, fast_score_pair
+from vdo_slam_tpu_torch.ops.fast_cuda import (KERNEL, MAX_LEVELS,
+                                              fast_score_pair,
+                                              fast_score_pyramid)
 from vdo_slam_tpu_torch.parallel.multistream import (make_frame_step,
                                                      make_stream_state)
 from vdo_slam_tpu_torch.pipeline.fused import FusedTracker
@@ -75,6 +78,63 @@ def test_kernel_rejects_cpu_only_layouts():
     with pytest.raises(ValueError):
         fast_score_pair(torch.zeros(20, 40, device="cuda")[:, ::2], TH_INI,
                         TH_MIN)
+
+
+def _bench_levels(n_frames):
+    """The 8 pyramid levels of the bench scene's first frames (1242x375),
+    (H_l, W_l) for one frame, (n_frames, H_l, W_l) for more."""
+    rgb = make_scene(num_frames=n_frames, width=1242, height=375,
+                     num_objects=3, fx=721.5377, seed=7).rgb
+    per_frame = [fast.pyramid(torch.from_numpy(f).cuda()) for f in rgb]
+    if n_frames == 1:
+        return per_frame[0]
+    return [torch.stack(lv).contiguous() for lv in zip(*per_frame)]
+
+
+def _tie_image():
+    img = np.zeros((16, 16), np.float32)
+    img[:, 8:] = np.float32(TH_INI)
+    img[5:9, 8:] = 1.0
+    return img
+
+
+@pytest.mark.parametrize("case", ["bench_8_levels", "bench_S3", "7x7",
+                                  "ties"])
+def test_pyramid_equals_plain(case):
+    if case == "bench_8_levels":
+        levels = _bench_levels(1)
+    elif case == "bench_S3":
+        levels = _bench_levels(3)
+    elif case == "7x7":
+        levels = [torch.from_numpy(_binary((7, 7), 3)).cuda()]
+    else:
+        levels = [torch.from_numpy(_tie_image()).cuda(),
+                  torch.from_numpy(_binary((40, 70), 4)).cuda()]
+    for th_ini, th_min in ((TH_INI, TH_MIN), (TH_MIN, TH_INI)):
+        before = KERNEL.launches
+        pairs = fast_score_pyramid(levels, th_ini, th_min)
+        torch.cuda.synchronize()
+        assert KERNEL.launches == before + 1
+        for g, (k_ini, k_min) in zip(levels, pairs):
+            assert k_ini.shape == g.shape and k_ini.is_contiguous()
+            assert torch.equal(k_ini, fast.fast_score(g, th_ini))
+            assert torch.equal(k_min, fast.fast_score(g, th_min))
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda: [torch.zeros(20, 20, dtype=torch.float64, device="cuda")],
+     TypeError),
+    (lambda: [torch.zeros(20, 40, device="cuda")[:, ::2]], ValueError),
+    (lambda: [torch.zeros(2, 20, 20, device="cuda"),
+              torch.zeros(3, 9, 9, device="cuda")], ValueError),
+    (lambda: [torch.zeros(16, 16, device="cuda")] * (MAX_LEVELS + 1),
+     ValueError),
+], ids=["fp64", "strided", "mixed_S", "too_many"])
+def test_pyramid_rejects(bad, err):
+    before = KERNEL.launches
+    with pytest.raises(err):
+        fast_score_pyramid(bad(), TH_INI, TH_MIN)
+    assert KERNEL.launches == before
 
 
 class NumpyDraws:

@@ -86,7 +86,7 @@ class JaxDraws:
 def to_port_host(cfg, jstate_np, jmetrics_np):
     """The JAX step's outputs in the archive's host layout, through the
     port's own pack/unpack."""
-    state, _ = state_from_numpy(jstate_np)
+    state, _ = state_from_numpy(jstate_np, "cpu")
     metrics = {k: torch.from_numpy(np.array(v)) for k, v in jmetrics_np.items()}
     sh = cfg.shapes
     return unpack_host(pack_outputs(state, metrics).numpy(), sh.max_static,
@@ -122,9 +122,10 @@ def run():
 
     jstep = jax.jit(jax_step(jcfg, packed=False))
     pstep = make_frame_step(cfg, "cpu")
-    stager = FusedTracker(cfg)          # host staging: GT pose, gt_sems
-    jarchive = FusedTracker(cfg)        # the JAX outputs' MapState
-    jst, pst = jax_state(jcfg), make_stream_state(cfg)
+    # host staging (GT pose, gt_sems), and the JAX outputs' MapState
+    stager = FusedTracker(cfg, device="cpu")
+    jarchive = FusedTracker(cfg, device="cpu")
+    jst, pst = jax_state(jcfg), make_stream_state(cfg, "cpu")
     out = {"jax": [], "port": [], "carried": []}
     jstate_prev = None
     for f in range(len(ds)):
@@ -139,14 +140,14 @@ def run():
         pst, pm = pstep(pst, inputs, JaxDraws(keys[f], f > 0, n_slots), f > 0)
         out["port"].append(pm | {"T_cw": pst.frame.T_cw})
         if jstate_prev is not None:
-            st, init = state_from_numpy(jstate_prev)
+            st, init = state_from_numpy(jstate_prev, "cpu")
             cst, cm = pstep(st, inputs, JaxDraws(keys[f], init, n_slots), init)
             out["carried"].append(cm | {"T_cw": cst.frame.T_cw})
         out["jax"][-1]["T_cw"] = jst_np["frame"].T_cw
         jstate_prev = jst_np
 
     sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
-                  mode="fused")
+                  mode="fused", device="cpu")
     out["reports"] = sysm.run_sequence(ds)
     out["port_metrics"] = sysm.metrics()
     out["jax_metrics"] = metric_report(jarchive.map)

@@ -4,9 +4,9 @@ vdo_slam_tpu/ops/fast.py.
 `fast_score` is the plain PyTorch version of the corner score (16 rolled
 views and the unrolled 9-arc reductions, as in the JAX package).  It is the
 reference the CUDA kernel (ops/fast_cuda.py) is held to bit for bit, and
-what the kernel's wrapper runs for a tensor on the CPU.  `detect_level`
-always goes through that wrapper, so on a CUDA device every pyramid level
-launches the kernel.
+what the kernel's wrapper runs for a tensor on the CPU.  `detect_pyramid`
+scores all levels through that wrapper at once, so on a CUDA device a
+frame's pyramid is one kernel launch.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from . import select as _select
-from .fast_cuda import fast_score_pair
+from .fast_cuda import fast_score_pair, fast_score_pyramid
 
 Tensor = torch.Tensor
 
@@ -81,17 +81,22 @@ def _cell_max(score: Tensor, cell: int) -> Tensor:
 
 def detect_level(gray: Tensor, ini_th: float, min_th: float, cell: int,
                  k: int):
-    """Detect up to k corners at one pyramid level.
+    """Detect up to k corners at one pyramid level.  Returns (xy (k, 2)
+    f32, score (k,), valid (k,))."""
+    return select_corners(*fast_score_pair(gray, ini_th, min_th), cell, k)
+
+
+def select_corners(s_ini: Tensor, s_min: Tensor, cell: int, k: int):
+    """Up to k corners of one level from its two score maps.
 
     Inside each cell the ini-threshold response is used if the cell fired
     at all, else the min-threshold one (ORBextractor.cc:789-822).  Returns
     (xy (k, 2) f32, score (k,), valid (k,)).
     """
-    s_ini, s_min = fast_score_pair(gray, ini_th, min_th)
     has_ini = _cell_max(s_ini, cell) > 0.0
     score = nms3(torch.where(has_ini, s_ini, s_min))
 
-    H, W = gray.shape
+    H, W = score.shape
     ph, pw = (-H) % cell, (-W) % cell
     padded = F.pad(score, (0, pw, 0, ph), value=0.0)
     Hc, Wc = (H + ph) // cell, (W + pw) // cell
@@ -102,7 +107,7 @@ def detect_level(gray: Tensor, ini_th: float, min_th: float, cell: int,
     # per-cell top quota; ties to the lowest in-cell index (lax.top_k order)
     top_i = _select.stable_desc_order(cells, dim=1)[:, :quota]
     top_v = torch.gather(cells, 1, top_i)
-    cell_id = torch.arange(n_cells, device=gray.device)
+    cell_id = torch.arange(n_cells, device=score.device)
     cy = (cell_id // Wc)[:, None] * cell
     cx = (cell_id % Wc)[:, None] * cell
     yy = (cy + top_i // cell).reshape(-1).to(torch.float32)
@@ -124,8 +129,9 @@ def level_shapes(H: int, W: int, n_levels: int, scale_factor: float):
 def pyramid(gray: Tensor, n_levels: int = 8,
             scale_factor: float = 1.2) -> list[Tensor]:
     """The detector's image pyramid.  Level l > 0 resizes level 0 directly,
-    bilinear with antialiasing, as jax.image.resize does (fast.py:185);
-    the two agree to ~3e-5."""
+    bilinear with antialiasing, as jax.image.resize does (fast.py:185).
+    Each level is within 2e-6 of the float64 product of that resize's
+    weights; jax.image.resize on the CPU is up to ~3e-5 off it."""
     H, W = gray.shape
     out = [gray]
     for Hl, Wl in level_shapes(H, W, n_levels, scale_factor)[1:]:
@@ -155,11 +161,12 @@ def detect_pyramid(gray: Tensor, n_features: int = 2500, n_levels: int = 8,
     t_scale = 1.0 / 255.0
     inv = 1.0 / scale_factor
     budgets = level_budgets(n_features, n_levels, scale_factor)
+    scores = fast_score_pyramid(pyramid(gray, n_levels, scale_factor),
+                                ini_th * t_scale, min_th * t_scale)
     xs, ss, os_, vs = [], [], [], []
-    for l, img in enumerate(pyramid(gray, n_levels, scale_factor)):
+    for l, (s_ini, s_min) in enumerate(scores):
         cell_l = max(int(cell * inv ** l), 8)
-        xy, sc, va = detect_level(img, ini_th * t_scale, min_th * t_scale,
-                                  cell_l, budgets[l])
+        xy, sc, va = select_corners(s_ini, s_min, cell_l, budgets[l])
         xs.append(xy * (scale_factor ** l))
         ss.append(sc)
         os_.append(torch.full((budgets[l],), l, dtype=torch.int32,

@@ -39,7 +39,7 @@ class StreamState:
     max_id: Tensor       # () int32
 
 
-def make_stream_state(cfg: VDOConfig, device=None) -> StreamState:
+def make_stream_state(cfg: VDOConfig, device="cuda") -> StreamState:
     sh = cfg.shapes
     K = sh.max_objects
     return StreamState(
@@ -53,7 +53,7 @@ def make_stream_state(cfg: VDOConfig, device=None) -> StreamState:
     )
 
 
-def state_from_numpy(tree, device=None) -> tuple[StreamState, bool]:
+def state_from_numpy(tree, device="cuda") -> tuple[StreamState, bool]:
     """A JAX stream state pulled to numpy (`jax.device_get` of the dict of
     make_stream_state) -> (StreamState, initialized).  Leaves are read by
     name, from dict keys or attributes, so no JAX type is needed here."""
@@ -79,7 +79,7 @@ def state_from_numpy(tree, device=None) -> tuple[StreamState, bool]:
     return state, bool(get(tree, "initialized"))
 
 
-def make_frame_step(cfg: VDOConfig, device=None):
+def make_frame_step(cfg: VDOConfig, device="cuda"):
     """One fused tracking step for one stream.
 
     Returns step(state, inputs, draws, initialized) -> (state, metrics),

@@ -96,7 +96,7 @@ class FusedTracker:
     """Single-stream tracker built on the fused frame step."""
 
     def __init__(self, cfg: VDOConfig, game_map: MapState | None = None,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.map = game_map if game_map is not None else MapState()

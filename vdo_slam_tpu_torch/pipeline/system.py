@@ -1,7 +1,7 @@
 """Public API — port of vdo_slam_tpu/pipeline/system.py, mode "fused":
 
     sys = System(cfg, enable_local_ba=False, enable_global_ba=False,
-                 mode="fused", device="cuda")
+                 mode="fused")        # on "cuda" unless device="cpu"
     sys.run_sequence(dataset)          # or sys.track_rgbd(frame) per frame
     sys.metrics(); sys.timing(); sys.save_results(out_dir)
 
@@ -25,7 +25,7 @@ from .stages import check_slice
 class System:
     def __init__(self, cfg: VDOConfig | str | Path, enable_local_ba: bool = True,
                  enable_global_ba: bool = True, mode: str = "reference",
-                 device="cpu"):
+                 device="cuda"):
         if not isinstance(cfg, VDOConfig):
             cfg = load_settings(cfg)
         if mode != "fused":
