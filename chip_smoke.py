@@ -14,11 +14,23 @@ Phases, in order (any failure raises and exits nonzero):
      time per frame against its bound, the plain version's, the compass
      test's pass shares, and per-level times;
   4. the main path: System(mode="fused", device="cuda").run_sequence over
-     the bench scene cut to 25 tracked frames (make_scene(num_frames=26,
-     1242x375, 3 objects, seed 7); the dataset tracks num_frames - 1), with
-     the bench config, lm_iters 10 / lm_iters_obj 6 and BA off.  Checks:
+     the bench scene (make_scene(num_frames=101, 1242x375, 3 objects,
+     seed 7); the dataset tracks num_frames - 1) cut to its first 25
+     frames, the same inputs as make_scene(num_frames=26)'s, with the bench
+     config, lm_iters 10 / lm_iters_obj 6 and BA off.  Checks:
      25 frames reported, one kernel launch per frame, finite poses, and
-     accuracy within the gates below against the JAX package's numbers.
+     accuracy within the gates below against the JAX package's numbers;
+  5. bench.py's whole path: System(enable_local_ba=True,
+     enable_global_ba=True, mode="fused", device="cuda") over 100 frames of
+     the same scene, with the bench config plus bench.py's full-graph caps
+     and tpu_fast's 4 window-BA iterations: tracking, a window solve at
+     every trigger (6 of them), the full-batch solve at the end.  Checks:
+     100 frames, one FAST launch per frame, 6 window solves none of which
+     raises the cost, a full BA that lowers it, and metrics() and
+     metrics(refined=True) within the gates against the JAX package's
+     numbers.  Then, on the final map, one window solve and one full BA
+     under torch.profiler (kernel launches, device busy share), and both
+     solvers on the card against the same solve on the CPU.
 The line before the last holds the kernels' JSON record, the one before it
 the card as nvidia-smi reports it; the last line is the device JSON.
 """
@@ -46,6 +58,35 @@ JAX_REF = {
     "obj_r_rpe_deg": 0.0061579478500530865,
     "n_obj_estimates": 48,
 }
+# The JAX package's numbers for phase 5, taken by running vdo_slam_tpu's
+# System(cfg, enable_local_ba=True, enable_global_ba=True,
+# mode="fused").run_sequence on the CPU (JAX 0.9.0, JAX_PLATFORMS=cpu) over
+# the 100 frames and config that `ba_path` builds: the metrics before
+# (after the window solves) and after the full BA, and each window solve's
+# cost before and after.
+JAX_REF_BA = {
+    "initial": {
+        "cam_t_rpe": 0.00024307842081164633,
+        "cam_r_rpe_deg": 0.00015362603113119517,
+        "obj_t_rpe": 0.0004485694268677274,
+        "obj_r_rpe_deg": 0.00684782311929928,
+        "n_obj_estimates": 136,
+    },
+    "refined": {
+        "cam_t_rpe": 0.00024372028437102944,
+        "cam_r_rpe_deg": 0.0001517146937128464,
+        "obj_t_rpe": 0.0003854773732361055,
+        "obj_r_rpe_deg": 0.0026634063385592706,
+        "n_obj_estimates": 136,
+    },
+    "window_cost": [(1.423598289489746, 1.065406084060669),
+                    (0.5091784596443176, 0.41150006651878357),
+                    (0.2155500203371048, 0.19330984354019165),
+                    (0.35663899779319763, 0.3334866166114807),
+                    (0.7532920837402344, 0.654660701751709),
+                    (0.3620983362197876, 0.31730034947395325)],
+}
+N_BA_FRAMES = 100
 # A metric passes if it is within 2x the JAX number or under this floor,
 # whichever is looser.
 ABS_FLOOR = {"cam_t_rpe": 1e-3, "cam_r_rpe_deg": 0.01, "obj_t_rpe": 5e-3,
@@ -60,6 +101,7 @@ FP32_OPS_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 # the bright list 16 subtractions, 80 min/max for the 16 arcs and 1 compare;
 # a dark entry also 16 negations.
 OPS_PER_PIXEL, OPS_PER_BRIGHT, OPS_PER_DARK = 14, 97, 113
+KERNEL_NAME = "fast_pyramid"  # in the profiler's name of the CUDA kernel
 
 
 def card_line() -> str:
@@ -70,7 +112,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_scene(num_frames: int = N_FRAMES + 1, width: int = W,
+def bench_scene(num_frames: int = N_BA_FRAMES + 1, width: int = W,
                 height: int = H):
     from vdo_slam_tpu_torch.io.synthetic import make_scene
 
@@ -96,6 +138,16 @@ def bench_config(width: int = W, height: int = H):
     )
 
 
+def bench_ba_config(width: int = W, height: int = H):
+    """bench_config() with bench.py's fixed full-graph capacities
+    (bench.py:279-282) and tpu_fast's 4 window-BA iterations."""
+    cfg = bench_config(width, height)
+    return cfg.replace(backend=dataclasses.replace(
+        cfg.backend, full_obs_cap=245760, full_ter_cap=131072,
+        full_point_cap=122880, full_motion_cap=192, full_smo_cap=192,
+        local_iters=4))
+
+
 def _time_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -110,24 +162,35 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _device_ms(fn, reps: int = 5, match: str | None = None,
-               between=None) -> float:
+               between=None, per: str | None = None) -> float:
     """Device time of fn per call: the sum of its kernels' durations under
     torch.profiler (CUDA activity only), without the host's launch cost.
     `between` runs before each call (an L2 flush); `match` keeps only the
-    kernels whose name holds it, so the flush is not counted."""
+    kernels whose name holds it, so the flush is not counted.  Where fn
+    launches the kernel named `per` once per call, the sum is divided by
+    the launches of it that the profiler recorded, not by reps: a session
+    now and then records fewer device events than ran (a one-level time
+    once read 0), and would read low."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if between is not None:
-                between()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if match is None or match in e.key)
-    return us / reps / 1e3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        calls = (reps if per is None
+                 else sum(e.count for e in events if per in e.key))
+        if calls:
+            us = sum(e.self_device_time_total for e in events
+                     if match is None or match in e.key)
+            return us / calls / 1e3
+    raise RuntimeError(f"the profiler recorded no {per} launch in 5 "
+                       f"sessions of {reps} calls")
 
 
 def compass_shares(levels, t: float):
@@ -260,16 +323,18 @@ def time_pyramid(scene, device, card: str, reps: int = 20) -> dict:
     for name in ("kernel", "plain", "plain", "kernel"):
         fn = kernel if name == "kernel" else plain
         ev[name].append(_time_ms(fn, reps))
-        dev[name].append(_device_ms(fn, 20 if name == "kernel" else 5))
+        dev[name].append(_device_ms(fn, 20, per=KERNEL_NAME)
+                         if name == "kernel" else _device_ms(fn, 5))
     k_ev, k_dev = min(ev["kernel"]), min(dev["kernel"])
     p_ev, p_dev = min(ev["plain"]), min(dev["plain"])
     # reading 64 MB (> the 50 MB L2) evicts the levels and leaves no dirty
     # lines for the kernel to write back
     flush = torch.ones(64 * 2**20 // 4, device=device)
-    cold = _device_ms(kernel, match="fast_pyramid",
+    cold = _device_ms(kernel, match=KERNEL_NAME, per=KERNEL_NAME,
                       between=lambda: flush.sum())
     flat = [torch.full_like(g, 0.5) for g in levels]
-    flat_ms = _device_ms(lambda: fast_score_pyramid(flat, TH_INI, TH_MIN))
+    flat_ms = _device_ms(lambda: fast_score_pyramid(flat, TH_INI, TH_MIN),
+                         per=KERNEL_NAME)
 
     def runs(xs):
         return ", ".join(f"{x:.5f}" for x in xs)
@@ -294,7 +359,8 @@ def time_pyramid(scene, device, card: str, reps: int = 20) -> dict:
           f" of interior pixels listed ({n_bright} bright, {n_dark} dark "
           f"entries), {n_warp / n_warps:.4f} of warps hold one")
     for l, (g, row) in enumerate(zip(levels, shares)):
-        one = _device_ms(lambda: fast_score_pair(g, TH_INI, TH_MIN))
+        one = _device_ms(lambda: fast_score_pair(g, TH_INI, TH_MIN),
+                         per=KERNEL_NAME)
         lv_bound = 12.0 * g.numel() / HBM_BYTES_PER_S * 1e6
         print(f"level {l} {tuple(g.shape)}: one-level launch {one:.5f} ms on "
               f"the device, byte bound {lv_bound:.3f} us; listed "
@@ -356,20 +422,185 @@ def main_path(scene, cfg, device, card: str) -> dict:
     print(f"main path: {len(reports)} frames, {launches} FAST kernel "
           f"launches")
     rep = sysm.metrics()
-    print(f"port metrics: {json.dumps(rep)}")
-    print(f"JAX metrics:  {json.dumps(JAX_REF)}")
-    for k, floor in ABS_FLOOR.items():
-        bound = max(2.0 * JAX_REF[k], floor)
-        if not (math.isfinite(rep[k]) and rep[k] <= bound):
-            raise RuntimeError(f"{k} = {rep[k]} above {bound}")
-        print(f"gate {k}: {rep[k]:.6g} <= {bound:.6g}")
-    need = 0.9 * JAX_REF["n_obj_estimates"]
-    if rep["n_obj_estimates"] < need:
-        raise RuntimeError(f"n_obj_estimates {rep['n_obj_estimates']} < "
-                           f"{need}")
-    print(f"gate n_obj_estimates: {rep['n_obj_estimates']} >= {need}")
+    gate(rep, JAX_REF, "")
     return {"launches": launches, "fps": fps, "peak_bytes": peak,
             "metrics": rep}
+
+
+def gate(rep: dict, ref: dict, what: str) -> None:
+    """Raise unless each metric is within 2x the JAX number or under its
+    floor, and the estimates reach 90 % of the JAX count."""
+    print(f"port metrics{what}: {json.dumps(rep)}")
+    print(f"JAX metrics{what}:  {json.dumps(ref)}")
+    for k, floor in ABS_FLOOR.items():
+        bound = max(2.0 * ref[k], floor)
+        if not (math.isfinite(rep[k]) and rep[k] <= bound):
+            raise RuntimeError(f"{k}{what} = {rep[k]} above {bound}")
+        print(f"gate {k}{what}: {rep[k]:.6g} <= {bound:.6g}")
+    need = 0.9 * ref["n_obj_estimates"]
+    if rep["n_obj_estimates"] < need:
+        raise RuntimeError(f"n_obj_estimates{what} {rep['n_obj_estimates']} "
+                           f"< {need}")
+    print(f"gate n_obj_estimates{what}: {rep['n_obj_estimates']} >= {need}")
+
+
+def _profiled(fn, what: str):
+    """fn() once under torch.profiler: (result, kernel launches, device ms,
+    wall ms), and a line of the operators the host called most.  Launches
+    count the kernels the device ran (copies and fills by the copy engine
+    are not kernels); device ms sums every device activity (kernels and
+    copies; one stream, so they do not overlap); wall ms is the host clock
+    to the final synchronize, profiler overhead included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launches = sum(1 for e in dev
+                   if not e.name.startswith(("Memcpy", "Memset")))
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=lambda e: -e.count)
+    print(f"{what}, operators called most (calls): " + ", ".join(
+        f"{e.key} {e.count}" for e in ops[:10]))
+    return out, launches, dev_ms, wall
+
+
+def solver_gap(m, cfg, device, card: str) -> dict:
+    """The last window's Schur solve and the full-batch solve on the card
+    against the same solves on the CPU, from the same numpy graph of the
+    final map: the largest pose-entry and point gaps and the final costs."""
+    from vdo_slam_tpu_torch.backend import builders
+    from vdo_slam_tpu_torch.backend.factor_graph import (fetch,
+                                                         lm_solve_chunked,
+                                                         lm_solve_schur,
+                                                         upload)
+    from vdo_slam_tpu_torch.backend.full_ba import scaled_lm_params
+    from vdo_slam_tpu_torch.backend.window_ba import _lm_params
+
+    g_w, v_w, _ = builders.build_window_graph(m, cfg)
+    g_f, v_f, _ = builders.build_full_graph(m, cfg)
+    p_f = scaled_lm_params(cfg, g_f.obs_w.shape[0])
+    chunk = min(cfg.backend.full_ba_chunk, p_f.iters)
+    cases = {
+        "window (lm_solve_schur)": lambda d: lm_solve_schur(
+            *upload(g_w, v_w, d), _lm_params(cfg)),
+        "full (lm_solve_chunked)": lambda d: lm_solve_chunked(
+            *upload(g_f, v_f, d), p_f, chunk=chunk),
+    }
+    out = {}
+    for name, solve in cases.items():
+        res = {}
+        for d in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            v, info = solve(d)
+            res[d.type] = fetch((v.poses, v.points, info["cost0"],
+                                 info["cost"]))
+            res[d.type + "_s"] = time.perf_counter() - t0
+        (pc, xc, c0c, cc), (pg, xg, c0g, cg) = res["cpu"], res["cuda"]
+        gap = {"pose": float(np.abs(pg - pc).max()),
+               "point": float(np.abs(xg - xc).max()),
+               "cost_cuda": float(cg), "cost_cpu": float(cc),
+               "cost0_cuda": float(c0g), "cost0_cpu": float(c0c)}
+        out[name] = gap
+        print(f"card vs CPU, {name}: max pose-entry gap {gap['pose']:.3e}, "
+              f"max point gap {gap['point']:.3e} m, cost0 {float(c0g):.9g} "
+              f"(card) / {float(c0c):.9g} (CPU), cost {float(cg):.9g} / "
+              f"{float(cc):.9g}; {res['cuda_s']:.3f} s on the card, "
+              f"{res['cpu_s']:.3f} s on the CPU [{card}]")
+    return out
+
+
+def ba_path(scene, cfg, device, card: str) -> dict:
+    """Phase 5: tracking, every window solve and the full BA, as bench.py
+    runs them, through the port's System on 100 frames."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
+    from vdo_slam_tpu_torch.backend.window_ba import local_ba_inplace
+    from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.pipeline import System
+
+    ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
+    n = len(ds)
+    sysm = System(cfg, enable_local_ba=True, enable_global_ba=True,
+                  mode="fused", device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    reports = sysm.run_sequence(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    health, full = sysm.tracker.ba_health, sysm.full_ba_report
+    tr = cfg.tracking
+    w, o = tr.window_size, tr.overlap_size
+    want = sum(1 for f in range(n) if f >= w - 1 and (f - o + 1) % (w - o)
+               == 0)
+    print(f"BA path: {len(reports)} frames in {wall:.3f} s (host clock, "
+          f"tracking + {len(health)} window solves + full BA) [{card}]")
+    print(f"BA path peak device memory (max_memory_allocated): {peak} bytes "
+          f"({peak / 2**20:.1f} MiB) [{card}]")
+    print(f"BA path: {launches} FAST kernel launches in {n} frames")
+    if len(reports) != n or launches != n:
+        raise RuntimeError(f"{len(reports)} frames reported and {launches} "
+                           f"FAST launches, want {n} of each")
+    if len(health) != want:
+        raise RuntimeError(f"{len(health)} window solves, want {want}")
+    for i, (h, ms) in enumerate(zip(health, sysm.map.lba_times)):
+        j0, j1 = (JAX_REF_BA["window_cost"][i] if n == N_BA_FRAMES
+                  else (math.nan, math.nan))
+        print(f"window solve {i + 1}/{want}: {h['window']} poses, "
+              f"{h['n_points']} points, cost {h['cost0']:.6g} -> "
+              f"{h['cost']:.6g} (JAX {j0:.6g} -> {j1:.6g}); {ms:.3f} ms: "
+              f"build {h['t_build_ms']:.3f}, solve {h['t_dispatch_ms']:.3f} "
+              f"dispatch + {h['t_exec_ms']:.3f} wait, fetch "
+              f"{h['t_fetch_ms']:.3f}, write-back {h['t_writeback_ms']:.3f} "
+              f"ms [{card}]")
+        if not h["cost"] <= h["cost0"]:
+            raise RuntimeError(f"window solve {i + 1} raised the cost")
+    print(f"full BA: {full['iters_run']} LM iterations, cost "
+          f"{full['cost0']:.6g} -> {full['cost']:.6g}; build "
+          f"{full['t_build_s']:.4f} s, solve {full['t_solve_s']:.4f} s, "
+          f"write-back {full['t_writeback_s']:.4f} s; {full['n_static']} "
+          f"static + {full['n_dyn']} dynamic points, {full['n_motions']} "
+          f"motions [{card}]")
+    if not full["cost"] < full["cost0"]:
+        raise RuntimeError("the full BA did not lower the cost")
+    for r in reports:
+        if not np.isfinite(r["T_cw"]).all():
+            raise RuntimeError("non-finite pose in a report")
+    if n == N_BA_FRAMES:
+        gate(sysm.metrics(), JAX_REF_BA["initial"], " (before full BA)")
+        gate(sysm.metrics(refined=True), JAX_REF_BA["refined"], " (refined)")
+
+    # one more of each pass on copies of the final map, under the profiler
+    m = sysm.map
+    _, wl, wdev, wwall = _profiled(lambda: local_ba_inplace(
+        copy.deepcopy(m), cfg, device=device), "window solve")
+    print(f"one window solve under torch.profiler: {wl} kernel launches, "
+          f"{wdev:.3f} ms on the device in {wwall:.3f} ms, busy share "
+          f"{wdev / wwall:.4f} [{card}]")
+    rep, fl, fdev, fwall = _profiled(lambda: full_ba_inplace(
+        copy.deepcopy(m), cfg, device=device), "full BA")
+    it = rep["iters_run"]
+    print(f"one full BA under torch.profiler: {fl} kernel launches in {it} "
+          f"LM iterations ({fl / it:.1f} per iteration, graph build, upload "
+          f"and fetch included), {fdev:.3f} ms on the device in "
+          f"{fwall:.3f} ms, busy share {fdev / fwall:.4f} [{card}]")
+    gap = solver_gap(m, cfg, device, card)
+    return {"fast_launches": launches, "peak_bytes": peak,
+            "window_launches": wl, "full_launches_per_iter": fl / it,
+            "gap": gap}
 
 
 def main() -> int:
@@ -402,6 +633,7 @@ def main() -> int:
     max_err = check_kernel(scene, device)
     kern = time_pyramid(scene, device, card)
     path = main_path(scene, bench_config(), device, card)
+    ba = ba_path(scene, bench_ba_config(), device, card)
 
     print(json.dumps({"kernels": [{
         "name": "fast_score_pyramid",
@@ -410,6 +642,7 @@ def main() -> int:
         "replaces": "vdo_slam_tpu/ops/fast_pallas.py:37",
         "launches": path["launches"],
         "launches_per_frame": path["launches"] / N_FRAMES,
+        "launches_ba_path": ba["fast_launches"],
         "max_abs_err": max_err,
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

@@ -1,8 +1,9 @@
 """GPU-only tests of the port: the CUDA FAST kernel bit for bit against its
-plain version (one level and a whole pyramid per launch), and the fused
-step on the card against the same step on the CPU.  Every test here
-skips without a CUDA device.  This file imports no JAX, so it runs on a
-machine without it:
+plain version (one level and a whole pyramid per launch), the fused step
+on the card against the same step on the CPU, and both BA solvers on the
+card against the same solve on the CPU.  Every test here skips without a
+CUDA device.  This file imports no JAX, so it runs on a machine without
+it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -12,7 +13,11 @@ atomics in index_add_, other reduction trees, float64 normal equations in
 the LM) and resizes the pyramid with another kernel (~1e-6 apart, which
 reorders tied FAST scores), so it is held to the bounds the JAX-vs-port
 slice test uses: the same active object slots, T_cw within 1e-3 m and
-0.01 deg per frame.
+0.01 deg per frame.  The BA solves (window Schur and chunked full LM+PCG,
+on graphs the port's builders make from a map the port tracked on the
+CPU) sum with float atomics on the card: pose entries within 1e-4, points
+within 1e-3 m plus 2e-4 of the coordinate, final costs within 1e-4 of the
+starting cost, as the JAX-vs-port CPU tests hold them.
 """
 
 import dataclasses
@@ -164,11 +169,9 @@ class NumpyDraws:
         return torch.minimum((u * n).long(), n - 1)
 
 
-def test_step_on_card_matches_cpu():
-    scene = make_scene(num_frames=6, width=320, height=240, num_objects=2,
-                       seed=3)
+def _small_cfg():
     cfg = VDOConfig()
-    cfg = cfg.replace(
+    return cfg.replace(
         camera=dataclasses.replace(cfg.camera, fx=320.0, fy=320.0, cx=160.0,
                                    cy=120.0, width=320, height=240, bf=40.0),
         tracking=dataclasses.replace(cfg.tracking, dataset=KITTI,
@@ -180,6 +183,12 @@ def test_step_on_card_matches_cpu():
                            ransac_samples=128),
         frontend=dataclasses.replace(cfg.frontend, n_features=1200,
                                      n_levels=3))
+
+
+def test_step_on_card_matches_cpu():
+    scene = make_scene(num_frames=6, width=320, height=240, num_objects=2,
+                       seed=3)
+    cfg = _small_cfg()
     ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
     poses = {}
     for dev in ("cpu", "cuda"):
@@ -202,3 +211,57 @@ def test_step_on_card_matches_cpu():
         dt = np.linalg.norm(Tg[:3, 3] - Tc[:3, 3])
         dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
         assert dt < 1e-3 and dr < 0.01, (dt, dr)
+
+
+@pytest.fixture(scope="module")
+def tracked_map():
+    """The port's map of the 8-frame scene, tracked on the CPU, BA off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vdo_slam_tpu_torch.pipeline import System
+
+    scene = make_scene(num_frames=8, width=320, height=240, num_objects=2,
+                       seed=3)
+    cfg = _small_cfg()
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                  mode="fused", device="cpu")
+    sysm.run_sequence(SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0))
+    return sysm.map, cfg
+
+
+def _solve_both(solve, g, v):
+    from vdo_slam_tpu_torch.backend.factor_graph import fetch, upload
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        vv, info = solve(*upload(g, v, dev))
+        out[dev] = fetch((vv.poses, vv.points, info["cost0"], info["cost"]))
+    (pc, xc, c0c, cc), (pg, xg, c0g, cg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(pg, pc, atol=1e-4)
+    np.testing.assert_allclose(xg, xc, atol=1e-3, rtol=2e-4)
+    assert float(c0g) == pytest.approx(float(c0c), rel=1e-5)
+    assert abs(float(cg) - float(cc)) <= 1e-4 * float(c0c)
+    assert float(cg) < float(c0g)
+
+
+def test_window_solve_on_card_matches_cpu(tracked_map):
+    from vdo_slam_tpu_torch.backend.builders import build_window_graph
+    from vdo_slam_tpu_torch.backend.factor_graph import lm_solve_schur
+    from vdo_slam_tpu_torch.backend.window_ba import _lm_params
+
+    m, cfg = tracked_map
+    g, v, meta = build_window_graph(m, cfg, window=6)
+    assert meta.n_static_points > 20
+    _solve_both(lambda gg, vv: lm_solve_schur(gg, vv, _lm_params(cfg)), g, v)
+
+
+def test_full_solve_on_card_matches_cpu(tracked_map):
+    from vdo_slam_tpu_torch.backend.builders import build_full_graph
+    from vdo_slam_tpu_torch.backend.factor_graph import lm_solve_chunked
+    from vdo_slam_tpu_torch.backend.full_ba import scaled_lm_params
+
+    m, cfg = tracked_map
+    g, v, meta = build_full_graph(m, cfg)
+    assert meta.n_motions >= 2
+    p = scaled_lm_params(cfg, g.obs_w.shape[0])
+    _solve_both(lambda gg, vv: lm_solve_chunked(gg, vv, p, chunk=3), g, v)

@@ -177,7 +177,8 @@ class BackendConfig:
     local_sigma2_3d_sta: float = 16.0  # Optimizer.cc:191
     local_gain_thres: float = 1e-3     # Optimizer.cc:141
     local_iters: int = 100
-    local_unroll: int = 4              # scan unroll of the window solve
+    local_unroll: int = 4              # XLA scan unroll of the JAX window
+                                       # solve; inert in the port
     # full-batch BA — Optimizer::FullBatchOptimization (Optimizer.cc:1232-)
     # odometry-chain information; the reference ships 1e-3 for KITTI and
     # 1e-4 for OMD (Optimizer.cc:1330), the JAX package defaults to 1e-4
@@ -199,10 +200,12 @@ class BackendConfig:
     smooth_constraint: bool = True
     altitude_constraint: bool = False
     local_static_only: bool = True     # STATIC_ONLY=true in local BA (Optimizer.cc:211)
-    # full BA: PCG iterations and tolerance per LM iteration, PCG scan
-    # unroll, LM iterations per device call, and optional fixed capacities
-    # of the full graph (obs edges, ternary edges, point vertices, motion
-    # vertices, smoothness edges; None = bucket-rounded shapes)
+    # full BA: PCG iterations and tolerance (inert in both packages) per
+    # LM iteration, PCG scan unroll (inert in the port), LM iterations per
+    # chunk (the gain test runs at chunk ends), and optional fixed
+    # capacities of the full graph (obs edges, ternary edges, point
+    # vertices, motion vertices, smoothness edges; None = bucket-rounded
+    # shapes)
     cg_iters: int = 12
     cg_tol: float = 1e-6
     cg_unroll: int = 4

@@ -1,6 +1,5 @@
 """Copy of vdo_slam_tpu/eval/results.py (metric_report, timing_summary,
-save_results).  The one change: the g2o graph dump is left out, because
-only the full BA (not ported) fills MapState.g2o_dump.
+save_results), unchanged apart from this line.
 
 Result file writers + end-of-run metric reports.
 
@@ -104,6 +103,17 @@ def save_results(m: MapState, out_dir: str | Path) -> None:
         (out / "obj_track_time.txt").write_text(
             "# label semantic tracked_frames gt_frames\n"
             + ("\n".join(rows) + "\n" if rows else ""))
+
+    # --- optimized full-batch graph (dynamic_slam_graph_after_opt.g2o,
+    # Optimizer.cc:1935-1936); present once full_ba_inplace has run
+    if m.g2o_dump is not None:
+        from ..backend.g2o_io import save_g2o
+
+        d = m.g2o_dump
+        save_g2o(d["graph"], d["v"],
+                 out / "dynamic_slam_graph_after_opt.g2o",
+                 n_poses=d["n_poses"], n_motions=d["n_motions"],
+                 n_points=d["n_points"])
 
 
 def timing_summary(m: MapState) -> dict:

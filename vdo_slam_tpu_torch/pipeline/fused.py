@@ -7,9 +7,16 @@ device-to-host copy, started right after the step is queued; the previous
 frame is archived while the device works, so `grab_frame` reports the
 frame before the one it was given and `flush` reports the last.
 
+The window-BA trigger of the original (fused.py:316-322) fires on the
+archived frame, with the window end pinned to the archive's length, and
+runs the solve at once on this thread.  The original runs it on a
+background thread; the results are the same, because the solves are
+strictly sequential, each is pinned to its n_frames, and the fused device
+state never reads the refined values back.  A solve that raises fails the
+run (the original counts it and goes on).
+
 Left out (each listed in ROADMAP.md): the packed wire, chunked multi-frame
-steps, batched drains, the key ring, the stage-time probe and the window-BA
-trigger.
+steps, batched drains, the key ring and the stage-time probe.
 """
 
 from __future__ import annotations
@@ -115,6 +122,9 @@ class FusedTracker:
         # fills them from its probe (not ported), so they stay zero
         self._stage_ms = np.zeros(5, np.float32)
         self._pending = None
+        # window BA: System sets the hook, (map, n_frames) -> report dict
+        self.local_ba_hook = None
+        self.ba_health: list[dict] = []
 
     def _gt_pose(self, raw):
         # rebased so the first frame's GT is exactly I, even mid-sequence
@@ -207,7 +217,7 @@ class FusedTracker:
                            sh.max_objects)
         self._archive(fd, host, T_cw_gt, fid)
         hm = host["metrics"]
-        return {
+        rep = {
             "frame_id": fid,
             "T_cw": host["T_cw"],
             "t_rpe": float(hm["t_rpe"]),
@@ -216,6 +226,16 @@ class FusedTracker:
             "n_objects": int(hm["n_objects"]),
             "wall_time": time.perf_counter() - t0,
         }
+        # windowed BA trigger on the archived frame (Tracking.cc:1168-1183)
+        tr = self.cfg.tracking
+        w, o = tr.window_size, tr.overlap_size
+        if (self.local_ba_hook is not None and fid >= w - 1
+                and (fid - o + 1) % (w - o) == 0):
+            t5 = time.perf_counter()
+            health = self.local_ba_hook(self.map, self.map.num_frames)
+            self.map.lba_times.append((time.perf_counter() - t5) * 1e3)
+            self.ba_health.append(health)
+        return rep
 
     def _archive(self, fd: FrameData, host: dict, T_cw_gt, fid: int):
         """Append one frame to MapState (fused.py:541-636)."""

@@ -1,14 +1,16 @@
 """Public API — port of vdo_slam_tpu/pipeline/system.py, mode "fused":
 
-    sys = System(cfg, enable_local_ba=False, enable_global_ba=False,
+    sys = System(cfg, enable_local_ba=True, enable_global_ba=True,
                  mode="fused")        # on "cuda" unless device="cpu"
-    sys.run_sequence(dataset)          # or sys.track_rgbd(frame) per frame
-    sys.metrics(); sys.timing(); sys.save_results(out_dir)
+    sys.run_sequence(dataset)          # tracking, window BA, then full BA
+    sys.metrics(); sys.metrics(refined=True); sys.save_results(out_dir)
 
 The defaults are the JAX package's, so the same call means the same run in
-both packages or raises here: window BA, full BA, mode "reference" and the
-configurations `check_slice` names are not ported and raise
-NotImplementedError.
+both packages or raises here: mode "reference" and the configurations
+`check_slice` names are not ported and raise NotImplementedError.  With
+enable_local_ba the tracker runs a window solve every WINDOW_SIZE -
+OVERLAP_SIZE frames; with enable_global_ba, run_sequence ends with the
+full-batch solve, whose report it keeps in `full_ba_report`.
 """
 
 from __future__ import annotations
@@ -32,20 +34,21 @@ class System:
             raise NotImplementedError(
                 f"mode={mode!r}: only mode='fused' is ported (the host "
                 f"Tracker of pipeline/tracking.py is not)")
-        if enable_local_ba:
-            raise NotImplementedError(
-                "enable_local_ba=True: window BA (backend/window_ba.py) is "
-                "not ported; pass enable_local_ba=False")
-        if enable_global_ba:
-            raise NotImplementedError(
-                "enable_global_ba=True: full BA (backend/full_ba.py) is not "
-                "ported; pass enable_global_ba=False")
         check_slice(cfg)
-        from .fused import FusedTracker  # imports parallel/, which imports us
+        # imported here: parallel/ and backend/ import pipeline/
+        from ..backend.window_ba import local_ba_inplace
+        from .fused import FusedTracker
 
         self.cfg = cfg
         self.map = MapState()
         self.tracker = FusedTracker(cfg, self.map, device=device)
+        self.enable_global_ba = enable_global_ba
+        self.full_ba_report: dict | None = None
+        if enable_local_ba:
+            dev = self.tracker.device
+            self.tracker.local_ba_hook = (
+                lambda m, n_frames=None: local_ba_inplace(
+                    m, cfg, n_frames=n_frames, device=dev))
 
     def track_rgbd(self, fd: FrameData) -> dict:
         """Feed one frame; returns the report of the frame before it (the
@@ -63,6 +66,12 @@ class System:
         reports.append(self.tracker.flush())
         reports = [r for r in reports if r is not None
                    and not r.get("pipelining")]
+        # final-frame global refinement (Tracking.cc:1190-1208)
+        if self.enable_global_ba and self.map.num_frames > 2:
+            from ..backend.full_ba import full_ba_inplace
+
+            self.full_ba_report = full_ba_inplace(self.map, self.cfg,
+                                                  device=self.tracker.device)
         if verbose:
             for rep in reports:
                 print(f"frame {rep['frame_id']}: rpe t={rep['t_rpe']:.4f} "
