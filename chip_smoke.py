@@ -10,9 +10,11 @@ Phases, in order (any failure raises and exits nonzero):
      one-level launches on binary test images, each pyramid level of a
      1242x375 synthetic frame and a batch of 3; then one launch for the
      whole 8-level pyramid of that frame, and of frames 0-2 (S=3), level
-     by level.  Then the pyramid's device time (torch.profiler) and event
-     time per frame against its bound, the plain version's, the compass
-     test's pass shares, and per-level times;
+     by level, and of the decoded first frames of the four streams of
+     phase 7 (S=4), stream by stream.  Then the pyramid's device time
+     (torch.profiler) and event time per frame against its bound, the plain
+     version's, the compass test's pass shares, per-level times, and the
+     S=1 and S=4 launches interleaved, each against its byte bound;
   4. the main path: System(mode="fused", device="cuda").run_sequence over
      the bench scene (make_scene(num_frames=101, 1242x375, 3 objects,
      seed 7); the dataset tracks num_frames - 1) cut to its first 25
@@ -30,7 +32,27 @@ Phases, in order (any failure raises and exits nonzero):
      metrics(refined=True) within the gates against the JAX package's
      numbers.  Then, on the final map, one window solve and one full BA
      under torch.profiler (kernel launches, device busy share), and both
-     solvers on the card against the same solve on the CPU.
+     solvers on the card against the same solve on the CPU.  The tracker
+     packs every frame into the dense (4, H, W) wire: this is the run "with
+     no wire flags and fused_chunk=1";
+  6. the wire path, bench.py's path as bench.py configures it: phase 5's
+     config with tpu_fast's wire flags (half-res delta-coded flow, entropy
+     wire, drains of 8 chunks) and fused_chunk=4, over an
+     InMemoryPackedDataset of the same 100 frames.  Checks as in phase 5,
+     against the JAX package's numbers under the same config.  Prints the
+     upload bytes per frame, the wire decode's device time and kernel
+     launches per frame for both wires, a whole step's launches, and fps;
+  7. the S-stream path: MultiStreamSystem(n_streams=4, enable_local_ba=True)
+     on four 40-frame windows of the packed sequence (offsets 0, 7, 14, 21,
+     as bench.py --streams 4 takes them), one batched step per frame.
+     Checks: one FAST launch per frame for all four streams; every stream
+     against a solo System on its window and config (each frame's pose
+     within 1e-3 m and 0.01 deg, equal object-estimate counts).  Prints
+     aggregate and per-stream fps beside the solo fps of the same call,
+     launches and device busy share of one batched step and one solo step,
+     and peak memory.
+Phases 4 and 5 use `bench_config` / `bench_ba_config` (no wire flags),
+phases 6 and 7 `wire_config` (tpu_fast's wire flags).
 The line before the last holds the kernels' JSON record, the one before it
 the card as nvidia-smi reports it; the last line is the device JSON.
 """
@@ -86,7 +108,36 @@ JAX_REF_BA = {
                     (0.7532920837402344, 0.654660701751709),
                     (0.3620983362197876, 0.31730034947395325)],
 }
+# The JAX package's numbers for phase 6: the same run under `wire_config`
+# (tpu_fast's wire flags, fused_chunk=4) over an InMemoryPackedDataset,
+# printed by `JAX_PLATFORMS=cpu python tools/jax_wire_reference.py` (JAX
+# 0.9.0 on the CPU).
+JAX_REF_WIRE = {
+    "initial": {
+        "cam_t_rpe": 0.0002674052025226827,
+        "cam_r_rpe_deg": 0.00024964885502388036,
+        "obj_t_rpe": 0.00047633394173959354,
+        "obj_r_rpe_deg": 0.007022382614301775,
+        "n_obj_estimates": 136,
+    },
+    "refined": {
+        "cam_t_rpe": 0.00026716805567061403,
+        "cam_r_rpe_deg": 0.0002394885450558477,
+        "obj_t_rpe": 0.00038233257702599717,
+        "obj_r_rpe_deg": 0.0021332038818608077,
+        "n_obj_estimates": 136,
+    },
+    "window_cost": [(0.7353934049606323, 0.5556303858757019),
+                    (0.23227889835834503, 0.18792425096035004),
+                    (0.01417376846075058, 0.011513757519423962),
+                    (0.07281715422868729, 0.06883376836776733),
+                    (0.39788001775741577, 0.2842198610305786),
+                    (0.060070980340242386, 0.04095756635069847)],
+    "wire_bytes_per_frame": 1529564,
+}
 N_BA_FRAMES = 100
+N_STREAMS, N_STREAM_FRAMES = 4, 40   # bench.py --streams 4 (bench.py:40, 110)
+STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
 # A metric passes if it is within 2x the JAX number or under this floor,
 # whichever is looser.
 ABS_FLOOR = {"cam_t_rpe": 1e-3, "cam_r_rpe_deg": 0.01, "obj_t_rpe": 5e-3,
@@ -122,7 +173,8 @@ def bench_scene(num_frames: int = N_BA_FRAMES + 1, width: int = W,
 
 def bench_config(width: int = W, height: int = H):
     """bench.py's config (bench.py:262-284) with tpu_fast's LM budgets and
-    no wire flags; the backend capacities do not matter with BA off."""
+    no wire flags, so frames travel on the dense (4, H, W) wire: phase 4
+    (the backend capacities do not matter with BA off)."""
     from vdo_slam_tpu_torch.config import (KITTI, ShapeConfig, TrackingConfig,
                                            VDOConfig)
 
@@ -140,12 +192,56 @@ def bench_config(width: int = W, height: int = H):
 
 def bench_ba_config(width: int = W, height: int = H):
     """bench_config() with bench.py's fixed full-graph capacities
-    (bench.py:279-282) and tpu_fast's 4 window-BA iterations."""
+    (bench.py:279-282) and tpu_fast's 4 window-BA iterations: phase 5."""
     cfg = bench_config(width, height)
     return cfg.replace(backend=dataclasses.replace(
         cfg.backend, full_obs_cap=245760, full_ter_cap=131072,
         full_point_cap=122880, full_motion_cap=192, full_smo_cap=192,
         local_iters=4))
+
+
+def wire_config(fused_chunk: int, width: int = W, height: int = H):
+    """bench.py's config as bench.py runs it (bench.py:262-285):
+    bench_ba_config() through tpu_fast (the wire flags wire_flow_half,
+    wire_flow_delta, wire_entropy and fused_drain_chunks=8 on top of the LM
+    budgets bench_config already has), with bench.py's fused_chunk=4 in
+    phase 6 and bench_multistream's fused_chunk=1 in phase 7."""
+    from vdo_slam_tpu_torch.config import tpu_fast
+
+    cfg = bench_ba_config(width, height)
+    return tpu_fast(cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, fused_chunk=fused_chunk)))
+
+
+def packed_dataset(scene, cfg):
+    """The scene's frames pre-packed under cfg's wire, as bench.py packs
+    them (bench.py:292-301)."""
+    from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
+    from vdo_slam_tpu_torch.io.packed_dataset import InMemoryPackedDataset
+
+    tr = cfg.tracking
+    return InMemoryPackedDataset(
+        SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744),
+        depth_map_factor=256.0, flow_down=tr.flow_down,
+        flow_delta=tr.flow_delta, depth_down=tr.depth_down,
+        depth_resid=tr.depth_resid, entropy=tr.entropy,
+        seg_cap=tr.wire_seg_cap, depth_exc_cap=tr.wire_depth_exc_cap)
+
+
+def stream_offsets(n_total: int) -> list[int]:
+    """Where each stream's window starts (bench.py:110)."""
+    return [(7 * s) % (n_total - N_STREAM_FRAMES) for s in range(N_STREAMS)]
+
+
+def stream_first_grays(pds, cfg, device):
+    """(S, H, W): the decoded gray of each stream's first frame, what the
+    S-stream step hands the FAST kernel at frame 0."""
+    from vdo_slam_tpu_torch.io.packing import unpack_frame, wire_kwargs
+
+    bufs = np.stack([np.asarray(pds[o].packed)
+                     for o in stream_offsets(len(pds))])
+    return unpack_frame(torch.from_numpy(bufs).to(device), hw=(H, W),
+                        **wire_kwargs(cfg.tracking))[0]
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -201,6 +297,10 @@ def compass_shares(levels, t: float):
     pixel, all of which would run the arc code without the lists."""
     out = []
     for g in levels:
+        if g.ndim == 3:    # (S, H_l, W_l): the sums over the S images
+            per = [compass_shares([x], t)[0] for x in g]
+            out.append(tuple(sum(r[k] for r in per) for k in range(6)))
+            continue
         Hl, Wl = g.shape
         c = g[3:Hl - 3, 3:Wl - 3]
         comp = [g[3 + dy:Hl - 3 + dy, 3 + dx:Wl - 3 + dx] - c
@@ -228,9 +328,11 @@ def _pyramids(scene, device, frames):
             for f in frames]
 
 
-def check_kernel(scene, device) -> float:
+def check_kernel(scene, device, stream_grays) -> tuple[float, float]:
     """Phase 3a: kernel == plain version (atol=0), one level per launch and
-    one launch per pyramid.  Returns the largest abs error seen."""
+    one launch per pyramid.  Returns the largest abs error seen, and the
+    largest over the S=4 pyramid that phase 7 launches at its first frame
+    (`stream_grays`), held stream by stream."""
     from vdo_slam_tpu_torch.ops import fast
     from vdo_slam_tpu_torch.ops.fast_cuda import (KERNEL, fast_score_pair,
                                                   fast_score_pyramid)
@@ -284,7 +386,69 @@ def check_kernel(scene, device) -> float:
             max_err = max(max_err, held(
                 f"one launch for the pyramid of {what}, level {l} "
                 f"{tuple(g.shape)}", g, k_ini, k_min, TH_INI, TH_MIN))
-    return max_err
+
+    lv4 = fast.pyramid(stream_grays, 8, 1.2)
+    before = KERNEL.launches
+    pairs = fast_score_pyramid(lv4, TH_INI, TH_MIN)
+    torch.cuda.synchronize()
+    if KERNEL.launches != before + 1:
+        raise RuntimeError(f"S={N_STREAMS} pyramid: "
+                           f"{KERNEL.launches - before} launches, want 1")
+    err_batched = 0.0
+    for l, (g, (k_ini, k_min)) in enumerate(zip(lv4, pairs)):
+        if not g.is_contiguous():
+            raise RuntimeError(f"batched level {l} is not contiguous")
+        for st in range(N_STREAMS):
+            err_batched = max(err_batched, held(
+                f"one launch for the S={N_STREAMS} pyramid of the streams' "
+                f"first frames, stream {st}, level {l} {tuple(g[st].shape)}",
+                g[st], k_ini[st], k_min[st], TH_INI, TH_MIN))
+    return max_err, err_batched
+
+
+def _bound_ms(levels) -> tuple[float, float, float]:
+    """(byte ms, operation ms, bound ms) of one launch over `levels`: each
+    pixel read once and written twice over the memory rate, and the fp32
+    operations this data needs (what the compass test lets through) over
+    the fp32 rate."""
+    n_px = sum(g.numel() for g in levels)
+    shares = compass_shares(levels, min(TH_INI, TH_MIN))
+    n_bright, n_dark, _, n_interior = (sum(r[k] for r in shares)
+                                       for k in range(4))
+    byte_ms = 12.0 * n_px / HBM_BYTES_PER_S * 1e3
+    ops_ms = ((OPS_PER_PIXEL * n_interior + OPS_PER_BRIGHT * n_bright
+               + OPS_PER_DARK * n_dark) / FP32_OPS_PER_S * 1e3)
+    return byte_ms, ops_ms, max(byte_ms, ops_ms)
+
+
+def time_batched(scene, device, card: str, stream_grays) -> dict:
+    """Phase 3c: the kernel at S=1 and S=4 in one call, interleaved: device
+    time per launch and the share of each launch's byte bound."""
+    from vdo_slam_tpu_torch.ops import fast
+    from vdo_slam_tpu_torch.ops.fast_cuda import fast_score_pyramid
+
+    lv = {1: fast.pyramid(stream_grays[0].contiguous(), 8, 1.2),
+          N_STREAMS: fast.pyramid(stream_grays, 8, 1.2)}
+    ms = {1: [], N_STREAMS: []}
+    for S in (1, N_STREAMS, N_STREAMS, 1):
+        ms[S].append(_device_ms(
+            lambda: fast_score_pyramid(lv[S], TH_INI, TH_MIN), 20,
+            per=KERNEL_NAME))
+    out = {}
+    for S in (1, N_STREAMS):
+        byte_ms, ops_ms, bound = _bound_ms(lv[S])
+        best = min(ms[S])
+        out[S] = {"ms": best, "bound_ms": bound}
+        print(f"pyramid at S={S} (decoded first frames of the streams), one "
+              f"launch: {best:.5f} ms on the device (runs "
+              f"{', '.join(f'{x:.5f}' for x in ms[S])}); bound "
+              f"{bound * 1e3:.3f} us (bytes {byte_ms * 1e3:.3f} us, "
+              f"operations {ops_ms * 1e3:.3f} us); share of the bound "
+              f"reached {bound / best:.3f} [{card}]")
+    print(f"S={N_STREAMS} launch / S=1 launch: "
+          f"{out[N_STREAMS]['ms'] / out[1]['ms']:.3f}x the device time for "
+          f"{N_STREAMS}x the pixels [{card}]")
+    return out
 
 
 def time_pyramid(scene, device, card: str, reps: int = 20) -> dict:
@@ -301,10 +465,7 @@ def time_pyramid(scene, device, card: str, reps: int = 20) -> dict:
     shares = compass_shares(levels, min(TH_INI, TH_MIN))
     n_bright, n_dark, n_listed, n_interior, n_warp, n_warps = (
         sum(r[k] for r in shares) for k in range(6))
-    byte_ms = 12.0 * n_px / HBM_BYTES_PER_S * 1e3
-    ops_ms = ((OPS_PER_PIXEL * n_interior + OPS_PER_BRIGHT * n_bright
-               + OPS_PER_DARK * n_dark) / FP32_OPS_PER_S * 1e3)
-    bound_ms = max(byte_ms, ops_ms)
+    byte_ms, ops_ms, bound_ms = _bound_ms(levels)
     bound_by = "bytes" if byte_ms >= ops_ms else "operations"
 
     def kernel():
@@ -376,18 +537,34 @@ def time_pyramid(scene, device, card: str, reps: int = 20) -> dict:
             "bound_by": bound_by}
 
 
-class _Timed:
-    """Dataset view that notes when each frame is requested."""
+class _View:
+    """n frames of a dataset from `start` (bench.py:100-108)."""
 
-    def __init__(self, base, n):
-        self.base, self.n, self.t = base, n, {}
+    def __init__(self, base, start: int, n: int):
+        self.base, self.start, self.n = base, start, n
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, i):
-        self.t[i] = time.perf_counter()
-        return self.base[i]
+        return self.base[self.start + i]
+
+
+WARM = 3
+
+
+def _timed_run(run, ds_list):
+    """bench.py's timing (bench.py:328-350): `run` over the first WARM
+    frames of every dataset, then, timed on the host clock between two
+    synchronizes, over the rest.  Returns (frames per second of one
+    dataset's rest, what the two runs returned)."""
+    n = len(ds_list[0])
+    first = run([_View(d, 0, WARM) for d in ds_list])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rest = run([_View(d, WARM, n - WARM) for d in ds_list])
+    torch.cuda.synchronize()
+    return (n - WARM) / (time.perf_counter() - t0), (first, rest)
 
 
 def main_path(scene, cfg, device, card: str) -> dict:
@@ -396,20 +573,20 @@ def main_path(scene, cfg, device, card: str) -> dict:
     from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
     from vdo_slam_tpu_torch.pipeline import System
 
-    ds = _Timed(SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744),
-                N_FRAMES)
+    ds = _View(SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744),
+               0, N_FRAMES)
     sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
                   mode="fused", device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0
-    reports = sysm.run_sequence(ds)
-    t_end = time.perf_counter()
+    fps, (first, rest) = _timed_run(lambda d: sysm.run_sequence(d[0]), [ds])
+    reports = first + rest
     launches = KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
-    fps = (N_FRAMES - 3) / (t_end - ds.t[3])
-    print(f"tracking fps after 3 warm frames: {fps:.3f} ({N_FRAMES - 3} "
-          f"frames, host clock, inputs staged per frame) [{card}]")
+    print(f"tracking fps after {WARM} warm frames: {fps:.3f} "
+          f"({N_FRAMES - WARM} frames, host clock, each frame packed into "
+          f"the dense wire and staged as it comes) [{card}]")
     print(f"peak device memory (max_memory_allocated): {peak} bytes "
           f"({peak / 2**20:.1f} MiB) [{card}]")
     if len(reports) != N_FRAMES:
@@ -517,21 +694,22 @@ def solver_gap(m, cfg, device, card: str) -> dict:
     return out
 
 
-def ba_path(scene, cfg, device, card: str) -> dict:
-    """Phase 5: tracking, every window solve and the full BA, as bench.py
-    runs them, through the port's System on 100 frames."""
+def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
+            solvers: bool = True) -> dict:
+    """Phases 5 and 6: tracking, every window solve and the full BA, as
+    bench.py runs them, through the port's System on the 100 frames of
+    `ds` (frames, or pre-packed wire buffers), gated against `ref`."""
     import copy
 
     from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
     from vdo_slam_tpu_torch.backend.window_ba import local_ba_inplace
-    from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
     from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
     from vdo_slam_tpu_torch.pipeline import System
 
-    ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
     n = len(ds)
     sysm = System(cfg, enable_local_ba=True, enable_global_ba=True,
                   mode="fused", device=device)
+    C = sysm.tracker.chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0
@@ -546,18 +724,26 @@ def ba_path(scene, cfg, device, card: str) -> dict:
     w, o = tr.window_size, tr.overlap_size
     want = sum(1 for f in range(n) if f >= w - 1 and (f - o + 1) % (w - o)
                == 0)
-    print(f"BA path: {len(reports)} frames in {wall:.3f} s (host clock, "
-          f"tracking + {len(health)} window solves + full BA) [{card}]")
-    print(f"BA path peak device memory (max_memory_allocated): {peak} bytes "
+    # a padded tail chunk steps its padding frames too
+    want_launches = -(-n // C) * C
+    tracked = wall - full["t_build_s"] - full["t_solve_s"] \
+        - full["t_writeback_s"]
+    print(f"{what}: {len(reports)} frames in {wall:.3f} s (host clock, "
+          f"tracking + {len(health)} window solves + full BA); "
+          f"{n / tracked:.3f} fps over tracking and window solves, "
+          f"fused_chunk={C} [{card}]")
+    print(f"{what} peak device memory (max_memory_allocated): {peak} bytes "
           f"({peak / 2**20:.1f} MiB) [{card}]")
-    print(f"BA path: {launches} FAST kernel launches in {n} frames")
-    if len(reports) != n or launches != n:
+    print(f"{what}: {launches} FAST kernel launches in {n} frames")
+    if len(reports) != n or launches != want_launches:
         raise RuntimeError(f"{len(reports)} frames reported and {launches} "
-                           f"FAST launches, want {n} of each")
+                           f"FAST launches, want {n} and {want_launches}")
+    if [r["frame_id"] for r in reports] != list(range(n)):
+        raise RuntimeError("the reports are not in frame order")
     if len(health) != want:
         raise RuntimeError(f"{len(health)} window solves, want {want}")
     for i, (h, ms) in enumerate(zip(health, sysm.map.lba_times)):
-        j0, j1 = (JAX_REF_BA["window_cost"][i] if n == N_BA_FRAMES
+        j0, j1 = (ref["window_cost"][i] if n == N_BA_FRAMES
                   else (math.nan, math.nan))
         print(f"window solve {i + 1}/{want}: {h['window']} poses, "
               f"{h['n_points']} points, cost {h['cost0']:.6g} -> "
@@ -579,9 +765,15 @@ def ba_path(scene, cfg, device, card: str) -> dict:
     for r in reports:
         if not np.isfinite(r["T_cw"]).all():
             raise RuntimeError("non-finite pose in a report")
+    metrics = {"initial": sysm.metrics(),
+               "refined": sysm.metrics(refined=True)}
     if n == N_BA_FRAMES:
-        gate(sysm.metrics(), JAX_REF_BA["initial"], " (before full BA)")
-        gate(sysm.metrics(refined=True), JAX_REF_BA["refined"], " (refined)")
+        gate(metrics["initial"], ref["initial"], f" ({what}, before full BA)")
+        gate(metrics["refined"], ref["refined"], f" ({what}, refined)")
+    out = {"fast_launches": launches, "peak_bytes": peak, "wall_s": wall,
+           "metrics": metrics, "system": sysm}
+    if not solvers:
+        return out
 
     # one more of each pass on copies of the final map, under the profiler
     m = sysm.map
@@ -597,10 +789,152 @@ def ba_path(scene, cfg, device, card: str) -> dict:
           f"LM iterations ({fl / it:.1f} per iteration, graph build, upload "
           f"and fetch included), {fdev:.3f} ms on the device in "
           f"{fwall:.3f} ms, busy share {fdev / fwall:.4f} [{card}]")
-    gap = solver_gap(m, cfg, device, card)
-    return {"fast_launches": launches, "peak_bytes": peak,
-            "window_launches": wl, "full_launches_per_iter": fl / it,
-            "gap": gap}
+    out.update(window_launches=wl, full_launches_per_iter=fl / it,
+               gap=solver_gap(m, cfg, device, card))
+    return out
+
+
+def wire_costs(pds, dense_ds, cfgs: dict, device, card: str) -> dict:
+    """Phase 6b: what each wire costs per frame on the card: the bytes
+    uploaded, the decode's device time and kernel launches, and the kernel
+    launches and device time of one whole tracking step."""
+    from vdo_slam_tpu_torch.pipeline import stages
+    from vdo_slam_tpu_torch.pipeline.fused import FusedTracker
+
+    out = {}
+    for name, (cfg, ds) in {"tpu_fast wire": (cfgs["wire"], pds),
+                            "dense (4, H, W) wire": (cfgs["dense"],
+                                                     dense_ds)}.items():
+        cfg1 = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                        fused_chunk=1))
+        tracker = FusedTracker(cfg1, device=device)
+        unpack = stages.make_unpack(cfg1)
+        for f in range(3):                     # a tracked state to step from
+            tracker.grab_frame(ds[f])
+        tracker.flush()
+        inputs = tracker.device_inputs(ds[3])
+        inputs.pop("_T_cw_gt_host")
+        n_bytes = inputs["packed"].numel() * inputs["packed"].element_size()
+        dec_ms = _device_ms(lambda: unpack(inputs), 5)
+        _, dec_launches, _, _ = _profiled(lambda: unpack(inputs),
+                                          f"decode of the {name}")
+        state = tracker.state
+
+        def one_step():
+            from vdo_slam_tpu_torch.pipeline.draws import UniformDraws
+
+            return tracker.step(state, inputs,
+                                UniformDraws(tracker.frame_draws(3)), True)
+
+        _, launches, dev_ms, wall_ms = _profiled(one_step,
+                                                 f"one step on the {name}")
+        print(f"{name}: {n_bytes} bytes uploaded per frame; decode "
+              f"{dec_ms:.5f} ms on the device in {dec_launches} kernel "
+              f"launches; one whole step {launches} kernel launches, "
+              f"{dev_ms:.3f} ms on the device in {wall_ms:.3f} ms under "
+              f"torch.profiler, busy share {dev_ms / wall_ms:.4f} [{card}]")
+        out[name] = {"bytes": n_bytes, "decode_ms": dec_ms,
+                     "decode_launches": dec_launches,
+                     "step_launches": launches, "step_device_ms": dev_ms}
+    return out
+
+
+def _pose_gap(T, T_ref):
+    """(translation m, rotation deg) between two 4x4 poses."""
+    E = np.linalg.inv(np.asarray(T_ref, np.float64)) @ np.asarray(T,
+                                                                  np.float64)
+    sk = np.asarray([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0], E[1, 0] - E[0, 1]])
+    ang = np.degrees(np.arctan2(0.5 * np.linalg.norm(sk),
+                                0.5 * (np.trace(E[:3, :3]) - 1.0)))
+    return float(np.linalg.norm(E[:3, 3])), float(ang)
+
+
+def stream_path(pds, cfg, device, card: str) -> dict:
+    """Phase 7: four streams in one batched step per frame, each held
+    against a solo System on its window."""
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+    from vdo_slam_tpu_torch.pipeline import System
+
+    views = [_View(pds, off, N_STREAM_FRAMES)
+             for off in stream_offsets(len(pds))]
+    msys = MultiStreamSystem(cfg, n_streams=N_STREAMS, enable_local_ba=True,
+                             device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = 0
+    fps, (first, rest) = _timed_run(msys.run, views)
+    reps = [a + b for a, b in zip(first, rest)]
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    agg_fps = fps * N_STREAMS
+    print(f"S={N_STREAMS} path: {N_STREAM_FRAMES} frames per stream, "
+          f"{launches} FAST kernel launches ({launches / N_STREAM_FRAMES:.3f} "
+          f"per frame for all {N_STREAMS} streams); aggregate "
+          f"{agg_fps:.3f} fps after {WARM} warm frames "
+          f"({agg_fps / N_STREAMS:.3f} per stream; host clock, window BA "
+          f"on, {sum(len(t.ba_health) for t in msys.trackers)} window "
+          f"solves) [{card}]")
+    print(f"S={N_STREAMS} path peak device memory (max_memory_allocated): "
+          f"{peak} bytes ({peak / 2**20:.1f} MiB) [{card}]")
+    if launches != N_STREAM_FRAMES:
+        raise RuntimeError(f"{launches} FAST launches in {N_STREAM_FRAMES} "
+                           f"batched frames, want one per frame")
+    if any(len(r) != N_STREAM_FRAMES for r in reps):
+        raise RuntimeError(f"reports per stream {[len(r) for r in reps]}, "
+                           f"want {N_STREAM_FRAMES}")
+    per = msys.metrics()["per_stream"]
+    solo_fps = []
+    worst = (0.0, 0.0)
+    for st, view in enumerate(views):
+        solo = System(cfg, enable_local_ba=True, enable_global_ba=False,
+                      mode="fused", device=device)
+        one_fps, _ = _timed_run(lambda d: solo.run_sequence(d[0]), [view])
+        solo_fps.append(one_fps)
+        sm = solo.metrics()
+        gaps = [_pose_gap(a, b) for a, b in zip(msys.maps[st].cam_pose,
+                                                solo.map.cam_pose)]
+        dt, dr = max(g[0] for g in gaps), max(g[1] for g in gaps)
+        worst = (max(worst[0], dt), max(worst[1], dr))
+        print(f"stream {st} (frames {view.start}-"
+              f"{view.start + N_STREAM_FRAMES - 1}): {json.dumps(per[st])}")
+        print(f"solo   {st}: {json.dumps(sm)}; {solo_fps[-1]:.3f} fps; "
+              f"largest pose gap to the stream {dt:.3e} m, {dr:.3e} deg "
+              f"[{card}]")
+        if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+            raise RuntimeError(f"stream {st}: pose gap to its solo run "
+                               f"{dt} m, {dr} deg")
+        if per[st]["n_obj_estimates"] != sm["n_obj_estimates"]:
+            raise RuntimeError(
+                f"stream {st}: {per[st]['n_obj_estimates']} object "
+                f"estimates, its solo run {sm['n_obj_estimates']}")
+        if len(msys.trackers[st].ba_health) != len(solo.tracker.ba_health):
+            raise RuntimeError(f"stream {st}: window solve counts differ")
+        last_solo = solo
+    mean_solo = float(np.mean(solo_fps))
+    print(f"S={N_STREAMS} aggregate {agg_fps:.3f} fps against the solo runs' "
+          f"{mean_solo:.3f} fps (mean of {N_STREAMS}, same call): "
+          f"{agg_fps / mean_solo:.3f}x one stream, "
+          f"{agg_fps / (N_STREAMS * mean_solo):.3f} of {N_STREAMS}x "
+          f"[{card}]")
+    # one more batched frame and one more solo frame under the profiler
+    nxt = [pds[v.start + N_STREAM_FRAMES] for v in views]
+    _, ml, mdev, mwall = _profiled(lambda: msys.step_frame(nxt),
+                                   f"one S={N_STREAMS} step_frame")
+
+    def solo_frame():
+        last_solo.tracker.grab_frame(nxt[-1])
+        return last_solo.tracker.flush()
+
+    _, sl, sdev, swall = _profiled(solo_frame, "one solo frame")
+    print(f"one S={N_STREAMS} step_frame under torch.profiler: {ml} kernel "
+          f"launches, {mdev:.3f} ms on the device in {mwall:.3f} ms, busy "
+          f"share {mdev / mwall:.4f}; one solo frame: {sl} launches, "
+          f"{sdev:.3f} ms in {swall:.3f} ms, busy share "
+          f"{sdev / swall:.4f} [{card}]")
+    return {"launches": launches, "agg_fps": agg_fps, "solo_fps": mean_solo,
+            "peak_bytes": peak, "step_launches": ml, "busy": mdev / mwall,
+            "worst_gap": worst}
 
 
 def main() -> int:
@@ -630,10 +964,33 @@ def main() -> int:
     t0 = time.perf_counter()
     scene = bench_scene()
     print(f"scene: {scene.rgb.shape} made in {time.perf_counter() - t0:.1f} s")
-    max_err = check_kernel(scene, device)
+    from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
+
+    cfg_wire = wire_config(fused_chunk=4)
+    t0 = time.perf_counter()
+    pds = packed_dataset(scene, cfg_wire)
+    print(f"{len(pds)} frames packed under tpu_fast's wire in "
+          f"{time.perf_counter() - t0:.1f} s, {pds[0].packed.nbytes} bytes "
+          f"per frame (JAX package: "
+          f"{JAX_REF_WIRE['wire_bytes_per_frame']})")
+    if pds[0].packed.nbytes != JAX_REF_WIRE["wire_bytes_per_frame"]:
+        raise RuntimeError("the wire's length differs from the JAX package's")
+    grays = stream_first_grays(pds, cfg_wire, device)
+    max_err, err_batched = check_kernel(scene, device, grays)
     kern = time_pyramid(scene, device, card)
+    kern_s = time_batched(scene, device, card, grays)
     path = main_path(scene, bench_config(), device, card)
-    ba = ba_path(scene, bench_ba_config(), device, card)
+    dense_ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
+    ba = ba_path(dense_ds, bench_ba_config(), device, card, JAX_REF_BA,
+                 "BA path (dense wire)")
+    wire = ba_path(pds, cfg_wire, device, card, JAX_REF_WIRE,
+                   "wire path (tpu_fast wire)", solvers=False)
+    for key in ("initial", "refined"):
+        print(f"{key}: dense wire {json.dumps(ba['metrics'][key])}; "
+              f"tpu_fast wire {json.dumps(wire['metrics'][key])}")
+    wire_costs(pds, dense_ds, {"wire": cfg_wire, "dense": bench_ba_config()},
+               device, card)
+    streams = stream_path(pds, wire_config(fused_chunk=1), device, card)
 
     print(json.dumps({"kernels": [{
         "name": "fast_score_pyramid",
@@ -643,10 +1000,16 @@ def main() -> int:
         "launches": path["launches"],
         "launches_per_frame": path["launches"] / N_FRAMES,
         "launches_ba_path": ba["fast_launches"],
+        "launches_wire_path": wire["fast_launches"],
+        "launches_multistream_path": streams["launches"],
+        "streams": N_STREAMS,
         "max_abs_err": max_err,
+        "max_abs_err_batched": err_batched,
         "ms": kern["ms"],
+        "ms_s4": kern_s[N_STREAMS]["ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"],
+        "bound_ms_s4": kern_s[N_STREAMS]["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": None,
     }]}))

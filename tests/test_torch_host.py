@@ -193,7 +193,11 @@ def test_flo_roundtrip(tmp_path):
 
 
 class TestRefusals:
-    """Outside the slice, the port's System raises NotImplementedError."""
+    """Outside the slice, the port's System raises NotImplementedError;
+    options that were outside it once and are ported now are taken."""
+
+    PORTED = {"wire_flow_half", "wire_flow_down", "wire_entropy",
+              "fused_chunk"}
 
     @staticmethod
     def _cfg(**tracking):
@@ -226,6 +230,14 @@ class TestRefusals:
         cfg = pconfig.VDOConfig()
         cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
                              for k, v in change.items()})
+        if word in self.PORTED:
+            # the packed wire and the chunked drive are ported: the config
+            # is taken, and the tracker is built for it
+            sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                          mode="fused", device="cpu")
+            assert sysm.tracker.chunk == cfg.tracking.fused_chunk
+            assert sysm.cfg.tracking.flow_down == cfg.tracking.flow_down
+            return
         with pytest.raises(NotImplementedError, match=word):
             System(cfg, enable_local_ba=False, enable_global_ba=False,
                    mode="fused")
@@ -288,9 +300,16 @@ def test_port_runs_without_jax():
 
 
 def test_no_jax_imports_in_the_port():
+    """Neither the port's package nor chip_smoke.py imports jax, flax or
+    anything of the JAX package."""
     import re
 
-    pat = re.compile(r"^\s*(import|from) (jax|flax)\b", re.M)
-    hits = [str(p) for p in (REPO / "vdo_slam_tpu_torch").rglob("*.py")
-            if pat.search(p.read_text())]
+    pat = re.compile(r"^\s*(import|from) (jax|flax|vdo_slam_tpu)\b(?!_)",
+                     re.M)
+    files = list((REPO / "vdo_slam_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 30
+    hits = [str(p) for p in files if pat.search(p.read_text())]
     assert not hits, hits
+    assert pat.search("from vdo_slam_tpu.io import packing")
+    assert not pat.search("from vdo_slam_tpu_torch.io import packing")

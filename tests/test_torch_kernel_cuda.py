@@ -1,7 +1,9 @@
 """GPU-only tests of the port: the CUDA FAST kernel bit for bit against its
-plain version (one level and a whole pyramid per launch), the fused step
-on the card against the same step on the CPU, and both BA solvers on the
-card against the same solve on the CPU.  Every test here skips without a
+plain version (one level and a whole pyramid per launch, and the pyramids
+of S streams' decoded frames in one launch, held stream by stream), the
+wire decode on the card against the CPU's, the packed fused step and the
+S-stream system on the card against the same on the CPU, and both BA
+solvers on the card against the same solve on the CPU.  Every test here skips without a
 CUDA device.  This file imports no JAX, so it runs on a machine without
 it:
 
@@ -13,7 +15,8 @@ atomics in index_add_, other reduction trees, float64 normal equations in
 the LM) and resizes the pyramid with another kernel (~1e-6 apart, which
 reorders tied FAST scores), so it is held to the bounds the JAX-vs-port
 slice test uses: the same active object slots, T_cw within 1e-3 m and
-0.01 deg per frame.  The BA solves (window Schur and chunked full LM+PCG,
+0.01 deg per frame.  The wire decode is integer work and elementwise float
+work: atol = 0 against the CPU for every output of every layout.  The BA solves (window Schur and chunked full LM+PCG,
 on graphs the port's builders make from a map the port tracked on the
 CPU) sum with float atomics on the card: pose entries within 1e-4, points
 within 1e-3 m plus 2e-4 of the coordinate, final costs within 1e-4 of the
@@ -186,14 +189,16 @@ def _small_cfg():
 
 
 def test_step_on_card_matches_cpu():
+    """The packed step (the wire decode in front of the body) on the card
+    against the CPU's, on the same wire buffers and draws."""
     scene = make_scene(num_frames=6, width=320, height=240, num_objects=2,
                        seed=3)
     cfg = _small_cfg()
     ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
     poses = {}
     for dev in ("cpu", "cuda"):
-        step = make_frame_step(cfg, dev)
-        stager = FusedTracker(cfg, device=dev)
+        step = make_frame_step(cfg, dev, packed=True)
+        stager = FusedTracker(cfg, device=dev, build_step=False)
         draws = NumpyDraws(0, dev)
         st = make_stream_state(cfg, dev)
         poses[dev] = []
@@ -211,6 +216,90 @@ def test_step_on_card_matches_cpu():
         dt = np.linalg.norm(Tg[:3, 3] - Tc[:3, 3])
         dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
         assert dt < 1e-3 and dr < 0.01, (dt, dr)
+
+
+WIRES = {
+    "dense_delta": dict(wire_flow_delta=True),
+    "down4_resid": dict(wire_flow_down=4, wire_depth_down=2,
+                        wire_depth_resid=64),
+    "tpu_fast": dict(wire_flow_half=True, wire_flow_delta=True,
+                     wire_entropy=True),
+}
+
+
+@pytest.mark.parametrize("wire", list(WIRES))
+def test_unpack_on_card_equals_cpu(wire):
+    from vdo_slam_tpu_torch.pipeline.stages import make_unpack
+
+    scene = make_scene(num_frames=4, width=321, height=239, num_objects=2,
+                       seed=3)
+    cfg = _small_cfg()
+    cfg = cfg.replace(
+        camera=dataclasses.replace(cfg.camera, width=321, height=239),
+        tracking=dataclasses.replace(cfg.tracking, **WIRES[wire]))
+    ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
+    stager = FusedTracker(cfg, device="cpu", build_step=False)
+    staged = stager.device_inputs_chunk([ds[i] for i in range(3)])
+    unpack = make_unpack(cfg)
+    on_cpu = unpack(staged)
+    on_card = unpack({k: v.cuda() for k, v in staged.items()
+                      if torch.is_tensor(v)})
+    for k in ("rgb", "depth_raw", "flow", "seg"):
+        assert on_card[k].shape[0] == 3
+        assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
+
+
+def test_batched_kernel_equals_plain_per_stream():
+    """The launch the S-stream step makes: the pyramids of S decoded
+    frames, S in the kernel's grid, against the plain version per stream."""
+    from vdo_slam_tpu_torch.io.packing import pack_frame, unpack_frame
+
+    scene = make_scene(num_frames=5, width=1242, height=375, num_objects=3,
+                       fx=721.5377, seed=7)
+    ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
+    bufs = np.stack([pack_frame(fd.rgb, fd.depth_raw, fd.flow, fd.mask)
+                     for fd in (ds[i] for i in range(4))])
+    gray = unpack_frame(torch.from_numpy(bufs).cuda())[0]
+    levels = fast.pyramid(gray, 8, 1.2)
+    assert all(lv.is_contiguous() and lv.shape[0] == 4 for lv in levels)
+    before = KERNEL.launches
+    pairs = fast_score_pyramid(levels, TH_INI, TH_MIN)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    for g, (k_ini, k_min) in zip(levels, pairs):
+        for s in range(4):
+            assert torch.equal(k_ini[s], fast.fast_score(g[s], TH_INI))
+            assert torch.equal(k_min[s], fast.fast_score(g[s], TH_MIN))
+
+
+def test_multistream_system_on_card_matches_cpu_and_launches_once():
+    """S = 2 on the card: one FAST launch per frame for both streams, and
+    every stream within the step's card-vs-CPU bounds of the CPU system."""
+    from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+
+    scenes = [make_scene(num_frames=6, width=320, height=240, num_objects=2,
+                         seed=s) for s in (3, 9)]
+    cfg = _small_cfg()
+    cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, **WIRES["tpu_fast"]))
+    dss = [SyntheticDataset(s, depth_map_factor=1.0, bf=40.0) for s in scenes]
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        msys = MultiStreamSystem(cfg, n_streams=2, enable_local_ba=False,
+                                 device=dev)
+        before = KERNEL.launches
+        msys.run(dss)
+        assert KERNEL.launches - before == (len(dss[0]) if dev == "cuda"
+                                            else 0)
+        maps[dev] = msys.maps
+    for mc, mg in zip(maps["cpu"], maps["cuda"]):
+        assert mc.sem_label == mg.sem_label
+        for Tc, Tg in zip(mc.cam_pose, mg.cam_pose):
+            E = np.linalg.inv(Tc.astype(np.float64)) @ Tg.astype(np.float64)
+            s = np.array([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0],
+                          E[1, 0] - E[0, 1]])
+            dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
+            assert np.linalg.norm(E[:3, 3]) < 1e-3 and dr < 0.01
 
 
 @pytest.fixture(scope="module")

@@ -92,11 +92,9 @@ class TrackingConfig:
     # depth-noise fault injection (Frame.cc:489-493): sigma = z^2/(725*0.5)*0.15
     depth_noise: bool = False
     depth_noise_scale: float = 0.15 / (725.0 * 0.5)
-    # fused mode: frames tracked per device call (not ported; the port's
-    # System raises for > 1)
+    # fused mode: frames tracked per call of the tracker (grab_chunk)
     fused_chunk: int = 1
-    # The packed wire of the JAX package (io/packing.py; not ported, the
-    # port's System raises if any is on): half-res fp16 flow, the flow
+    # The packed wire (io/packing.py): half-res fp16 flow, the flow
     # downsample factor (0 = derive from wire_flow_half; 1, 2 or 4), the
     # lossless row-delta flow coding, the depth downsample factor (1 or 2)
     # and its sparse residual corrections, the lossless entropy wire, and
@@ -140,7 +138,24 @@ class TrackingConfig:
     def flow_down(self) -> int:
         return self.wire_flow_down or (2 if self.wire_flow_half else 1)
 
-    # fused mode: chunks per batched output drain (not ported)
+    @property
+    def flow_delta(self) -> bool:
+        return self.wire_flow_delta
+
+    @property
+    def depth_down(self) -> int:
+        return self.wire_depth_down
+
+    @property
+    def depth_resid(self) -> int:
+        return self.wire_depth_resid
+
+    @property
+    def entropy(self) -> bool:
+        return self.wire_entropy
+
+    # fused mode: chunks (frames, in the S-stream system) per batched
+    # output drain
     fused_drain_chunks: int = 4
 
 

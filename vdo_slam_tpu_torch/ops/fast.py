@@ -4,9 +4,12 @@ vdo_slam_tpu/ops/fast.py.
 `fast_score` is the plain PyTorch version of the corner score (16 rolled
 views and the unrolled 9-arc reductions, as in the JAX package).  It is the
 reference the CUDA kernel (ops/fast_cuda.py) is held to bit for bit, and
-what the kernel's wrapper runs for a tensor on the CPU.  `detect_pyramid`
+what the kernel's wrapper runs for a tensor on the CPU.  `score_pyramid`
 scores all levels through that wrapper at once, so on a CUDA device a
-frame's pyramid is one kernel launch.
+frame's pyramid is one kernel launch; given (S, H, W) gray it scores the
+pyramids of S frames in that one launch.  `select_pyramid` turns one
+frame's score maps into keypoints and can run under `torch.func.vmap`;
+`detect_pyramid` is the two in a row.
 """
 
 from __future__ import annotations
@@ -64,19 +67,21 @@ def fast_score(gray: Tensor, threshold: float) -> Tensor:
 
 
 def nms3(score: Tensor) -> Tensor:
-    """3x3 non-maximum suppression (keep local maxima > 0)."""
+    """3x3 non-maximum suppression of one (H, W) map (keep local maxima
+    > 0)."""
     m = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
     return torch.where((score == m) & (score > 0.0), score, 0.0)
 
 
 def _cell_max(score: Tensor, cell: int) -> Tensor:
-    """Per-cell max, broadcast back to pixels (non-overlapping cells)."""
+    """Per-cell max of one (H, W) map, broadcast back to pixels
+    (non-overlapping cells)."""
     H, W = score.shape
     padded = F.pad(score, (0, (-W) % cell, 0, (-H) % cell), value=0.0)
     Hc, Wc = padded.shape
     cmax = padded.reshape(Hc // cell, cell, Wc // cell, cell).amax(dim=(1, 3))
-    back = cmax.repeat_interleave(cell, 0).repeat_interleave(cell, 1)
-    return back[:H, :W]
+    back = cmax[:, None, :, None].expand(Hc // cell, cell, Wc // cell, cell)
+    return back.reshape(Hc, Wc)[:H, :W]
 
 
 def detect_level(gray: Tensor, ini_th: float, min_th: float, cell: int,
@@ -128,16 +133,18 @@ def level_shapes(H: int, W: int, n_levels: int, scale_factor: float):
 
 def pyramid(gray: Tensor, n_levels: int = 8,
             scale_factor: float = 1.2) -> list[Tensor]:
-    """The detector's image pyramid.  Level l > 0 resizes level 0 directly,
-    bilinear with antialiasing, as jax.image.resize does (fast.py:185).
-    Each level is within 2e-6 of the float64 product of that resize's
-    weights; jax.image.resize on the CPU is up to ~3e-5 off it."""
-    H, W = gray.shape
-    out = [gray]
+    """The detector's image pyramid of (H, W) or (S, H, W) gray; every
+    level is contiguous.  Level l > 0 resizes level 0 directly, bilinear
+    with antialiasing, as jax.image.resize does (fast.py:185).  Each level
+    is within 2e-6 of the float64 product of that resize's weights;
+    jax.image.resize on the CPU is up to ~3e-5 off it."""
+    H, W = gray.shape[-2:]
+    lead = gray.shape[:-2]
+    out = [gray.contiguous()]
     for Hl, Wl in level_shapes(H, W, n_levels, scale_factor)[1:]:
-        out.append(F.interpolate(gray[None, None], size=(Hl, Wl),
+        out.append(F.interpolate(gray.reshape(-1, 1, H, W), size=(Hl, Wl),
                                  mode="bilinear", align_corners=False,
-                                 antialias=True)[0, 0])
+                                 antialias=True).reshape(lead + (Hl, Wl)))
     return out
 
 
@@ -152,17 +159,25 @@ def level_budgets(n_features: int, n_levels: int, scale_factor: float):
     return budgets
 
 
-def detect_pyramid(gray: Tensor, n_features: int = 2500, n_levels: int = 8,
-                   scale_factor: float = 1.2, ini_th: float = 20.0,
-                   min_th: float = 7.0, cell: int = 30):
-    """Pyramid detection with per-level budgets.  Intensities in [0, 1];
-    thresholds in 8-bit units.  Returns dict(xy (N, 2) level-0 coords,
-    score, octave, valid)."""
+def score_pyramid(gray: Tensor, n_levels: int = 8,
+                  scale_factor: float = 1.2, ini_th: float = 20.0,
+                  min_th: float = 7.0):
+    """The FAST score maps of every pyramid level of (H, W) or (S, H, W)
+    gray in [0, 1], thresholds in 8-bit units: one (s_ini, s_min) pair per
+    level, each of the level's shape.  One kernel launch on a CUDA device,
+    whatever S."""
     t_scale = 1.0 / 255.0
+    return fast_score_pyramid(pyramid(gray, n_levels, scale_factor),
+                              ini_th * t_scale, min_th * t_scale)
+
+
+def select_pyramid(scores, n_features: int = 2500,
+                   scale_factor: float = 1.2, cell: int = 30):
+    """One frame's keypoints from its per-level (s_ini, s_min) score maps,
+    with per-level budgets.  Returns dict(xy (N, 2) level-0 coords, score,
+    octave, valid)."""
     inv = 1.0 / scale_factor
-    budgets = level_budgets(n_features, n_levels, scale_factor)
-    scores = fast_score_pyramid(pyramid(gray, n_levels, scale_factor),
-                                ini_th * t_scale, min_th * t_scale)
+    budgets = level_budgets(n_features, len(scores), scale_factor)
     xs, ss, os_, vs = [], [], [], []
     for l, (s_ini, s_min) in enumerate(scores):
         cell_l = max(int(cell * inv ** l), 8)
@@ -170,7 +185,17 @@ def detect_pyramid(gray: Tensor, n_features: int = 2500, n_levels: int = 8,
         xs.append(xy * (scale_factor ** l))
         ss.append(sc)
         os_.append(torch.full((budgets[l],), l, dtype=torch.int32,
-                              device=gray.device))
+                              device=s_ini.device))
         vs.append(va)
     return {"xy": torch.cat(xs), "score": torch.cat(ss),
             "octave": torch.cat(os_), "valid": torch.cat(vs)}
+
+
+def detect_pyramid(gray: Tensor, n_features: int = 2500, n_levels: int = 8,
+                   scale_factor: float = 1.2, ini_th: float = 20.0,
+                   min_th: float = 7.0, cell: int = 30):
+    """Pyramid detection of one (H, W) frame with per-level budgets.
+    Intensities in [0, 1]; thresholds in 8-bit units.  Returns dict(xy
+    (N, 2) level-0 coords, score, octave, valid)."""
+    scores = score_pyramid(gray, n_levels, scale_factor, ini_th, min_th)
+    return select_pyramid(scores, n_features, scale_factor, cell)

@@ -3,7 +3,9 @@ vdo_slam_tpu/ops/frontend.py.
 
 The random priority of `object_candidates` (frontend.py:85) is an input
 here, so tests can feed the JAX package's own draws.  Segment sums are
-`index_add_` into an overflow bucket that is sliced off.  The lost-mask
+`scatter_add` into an overflow bucket that is sliced off; like every
+scatter here it is out-of-place, so the functions also run under
+`torch.func.vmap` (the S-stream step).  The lost-mask
 repair of `propagate_mask` runs unconditionally and is selected with
 `torch.where` (the JAX `lax.cond`), so the step never reads the device.
 """
@@ -132,7 +134,12 @@ def segment_sum(x: Tensor, seg: Tensor, n: int) -> Tensor:
     fall in a bucket that is dropped (jax.ops.segment_sum on an overflow
     bucket, sliced)."""
     out = x.new_zeros(x.shape[:-1] + (n + 1,))
-    return out.index_add_(x.ndim - 1, seg, x)[..., :n]
+    return out.scatter_add(-1, seg.expand(x.shape), x)[..., :n]
+
+
+def zero_first(x: Tensor) -> Tensor:
+    """x with entry 0 of its last axis zeroed (JAX's `.at[0].set(0)`)."""
+    return torch.cat([torch.zeros_like(x[..., :1]), x[..., 1:]], dim=-1)
 
 
 def per_label_stats(slots, valid, xy, depth, sf3d, width: int, height: int,
@@ -183,9 +190,9 @@ def propagate_mask(seg_cur, seg_last, flow_last, obj_corres_last,
 
     # the repair scatter, computed every frame and kept only if a label was
     # lost (the lax.cond of the JAX package, without a host read)
-    is_lost_pixel = torch.isin(
-        seg_last, torch.where(lost, label_table,
-                              torch.full_like(label_table, -999999)))
+    lost_labels = torch.where(lost, label_table,
+                              torch.full_like(label_table, -999999))
+    is_lost_pixel = (seg_last[..., None] == lost_labels).any(dim=-1)
     ys, xs = torch.meshgrid(torch.arange(H, device=seg_cur.device),
                             torch.arange(W, device=seg_cur.device),
                             indexing="ij")
@@ -194,6 +201,7 @@ def propagate_mask(seg_cur, seg_last, flow_last, obj_corres_last,
     inb_t = (tx > 0) & (tx < W) & (ty > 0) & (ty < H) & is_lost_pixel
     flat_idx = torch.where(inb_t, ty * W + tx, H * W).reshape(-1)
     flat = torch.cat([seg_cur.reshape(-1), seg_cur.new_zeros(1)])
-    flat[flat_idx] = torch.where(inb_t, seg_last, 0).reshape(-1).to(flat.dtype)
+    flat = flat.scatter(0, flat_idx, torch.where(inb_t, seg_last, 0).reshape(
+        -1).to(flat.dtype))
     repaired = flat[:H * W].reshape(H, W)
     return torch.where(lost.any(), repaired, seg_cur), lost

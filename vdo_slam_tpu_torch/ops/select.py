@@ -5,7 +5,9 @@ Tie-breaking is the reference's: equal keys keep their index order.
 descending sort followed by a slice; `jnp.lexsort` becomes two stable
 sorts (minor key first); `lax.associative_scan(max)` becomes `cummax`;
 JAX's `.at[].set(mode="drop")` becomes a scatter into a k+1 buffer whose
-last slot takes the dropped lanes.  Indices are int64.
+last slot takes the dropped lanes.  Indices are int64.  Scatters are
+out-of-place (`scatter`, not indexed assignment), so every function here
+also runs under `torch.func.vmap`, which the S-stream step uses.
 """
 
 from __future__ import annotations
@@ -68,14 +70,14 @@ def quota_select(labels: Tensor, valid: Tensor, priority: Tensor,
                       sl[1:] == sl[:-1]])
     run_start = torch.cummax(torch.where(same, 0, idx_ar), dim=0).values
     accept_sorted = sv & ((idx_ar - run_start) < quota)
-    accept = torch.zeros(n, dtype=torch.bool, device=dev)
-    accept[order] = accept_sorted
+    accept = torch.zeros(n, dtype=torch.bool, device=dev).scatter(
+        0, order, accept_sorted)
     pos = torch.cumsum(accept.to(torch.int64), dim=0) - 1
     target = torch.where(accept & (pos < k), pos, k)
-    idx = torch.zeros(k + 1, dtype=torch.int64, device=dev)
-    idx[target] = idx_ar
-    out_valid = torch.zeros(k + 1, dtype=torch.bool, device=dev)
-    out_valid[target] = True
+    idx = torch.zeros(k + 1, dtype=torch.int64, device=dev).scatter(
+        0, target, idx_ar)
+    out_valid = torch.zeros(k + 1, dtype=torch.bool, device=dev).scatter(
+        0, target, torch.ones(n, dtype=torch.bool, device=dev))
     return idx[:k], out_valid[:k]
 
 

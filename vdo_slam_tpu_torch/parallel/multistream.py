@@ -1,12 +1,21 @@
-"""The fused per-frame tracking step — port of make_stream_state and
-make_frame_step (packed=False) of vdo_slam_tpu/parallel/multistream.py.
+"""The fused per-frame tracking step, for one stream and for S — port of
+make_stream_state, make_frame_step and make_multistream_step of
+vdo_slam_tpu/parallel/multistream.py.
 
-One step runs the whole frame: mask propagation, front end, inheritance,
-camera RANSAC + joint flow-pose LM, scene flow, the on-device classifier,
-the per-slot object solves and renewal.  The JAX step branches on its
-`initialized` flag with lax.cond; here the tracker keeps that flag as a
-host bool and passes it in, so the step never reads the device.  One
-stream per step: multistream (S > 1) is not ported.
+One step runs the whole frame: the wire decode (packed=True), mask
+propagation, front end, inheritance, camera RANSAC + joint flow-pose LM,
+scene flow, the on-device classifier, the per-slot object solves and
+renewal.  The JAX step branches on its `initialized` flag with lax.cond;
+here the tracker keeps that flag as a host bool and passes it in, so the
+step never reads the device.
+
+The S-stream step is the JAX package's `jax.vmap(step)` on one device:
+states and inputs carry a leading S, the wire of all streams is decoded
+in one pass, the FAST kernel scores the pyramids of all streams in ONE
+launch (S in the kernel's grid), and the rest of the body runs once under
+`torch.func.vmap`.  The draws come in as tensors (pipeline/draws.py).
+Spreading streams over several devices (the JAX package's Mesh and
+NamedSharding) is not ported: one device holds all S.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ import torch
 from ..config import VDOConfig
 from ..ops import frontend, select
 from ..pipeline import stages
-from ..pipeline.draws import FrameDraws
+from ..pipeline.draws import FrameDraws, UniformDraws
 from ..pipeline.stages import check_slice
 from ..pipeline.state import DynamicBank, FrameState, StaticBank
 
@@ -53,10 +62,43 @@ def make_stream_state(cfg: VDOConfig, device="cuda") -> StreamState:
     )
 
 
-def state_from_numpy(tree, device="cuda") -> tuple[StreamState, bool]:
+def stack_states(states: list[StreamState]) -> StreamState:
+    """S stream states as one with a leading S on every leaf (the JAX
+    package's jax.tree.map(jnp.stack, ...), multisystem.py:86-89)."""
+    return _unflatten([torch.stack(leaves) for leaves in
+                       zip(*(_flatten(st) for st in states))])
+
+
+def _flatten(obj) -> list[Tensor]:
+    """The tensors of a (nested) state dataclass, in field order."""
+    if torch.is_tensor(obj):
+        return [obj]
+    return [leaf for f in dataclasses.fields(obj)
+            for leaf in _flatten(getattr(obj, f.name))]
+
+
+_NESTED = {"frame": FrameState, "static": StaticBank, "dynamic": DynamicBank}
+
+
+def _unflatten(leaves: list[Tensor], cls=StreamState) -> StreamState:
+    """Inverse of _flatten."""
+    it = iter(leaves)
+
+    def build(c):
+        return c(**{f.name: (build(_NESTED[f.name]) if f.name in _NESTED
+                             else next(it))
+                    for f in dataclasses.fields(c)})
+
+    return build(cls)
+
+
+def state_from_numpy(tree, device="cuda"):
     """A JAX stream state pulled to numpy (`jax.device_get` of the dict of
     make_stream_state) -> (StreamState, initialized).  Leaves are read by
-    name, from dict keys or attributes, so no JAX type is needed here."""
+    name, from dict keys or attributes, so no JAX type is needed here.  A
+    stacked state (a leading S on every leaf) gives a StreamState with that
+    leading S and `initialized` as a list of S bools; a single state gives
+    one bool."""
     def get(obj, name):
         leaf = obj[name] if isinstance(obj, dict) else getattr(obj, name)
         if isinstance(leaf, dict) or dataclasses.is_dataclass(leaf):
@@ -76,16 +118,38 @@ def state_from_numpy(tree, device="cuda") -> tuple[StreamState, bool]:
     state = StreamState(frame=frame, **{
         f.name: get(tree, f.name)
         for f in dataclasses.fields(StreamState) if f.name != "frame"})
-    return state, bool(get(tree, "initialized"))
+    init = np.asarray(tree["initialized"] if isinstance(tree, dict)
+                      else tree.initialized)
+    return state, (bool(init) if init.ndim == 0 else [bool(x) for x in init])
 
 
-def make_frame_step(cfg: VDOConfig, device="cuda"):
+def make_frame_step(cfg: VDOConfig, device="cuda", packed: bool = False):
     """One fused tracking step for one stream.
 
     Returns step(state, inputs, draws, initialized) -> (state, metrics),
     where inputs = dict(rgb, depth_raw, flow, seg, T_cw_gt[, gt_sems]) are
-    tensors on `device`.  initialized=False runs frame-0 initialization.
+    tensors on `device` — or, with packed=True, dict(packed, T_cw_gt[,
+    gt_sems]) with the frame's int16 wire buffer (io/packing.py), decoded
+    on the device first.  initialized=False runs frame-0 initialization.
+    `inputs` may carry "fast_scores", the frame's FAST score maps, where
+    the caller has scored them already (the S-stream step).
     """
+    init_body, track_body = _make_bodies(cfg, device)
+    unpack = stages.make_unpack(cfg)
+
+    def step(state: StreamState, inputs, draws: FrameDraws,
+             initialized: bool):
+        if packed:
+            inputs = unpack(inputs)
+        body = track_body if initialized else init_body
+        return body(state, inputs, draws)
+
+    return step
+
+
+def _make_bodies(cfg: VDOConfig, device):
+    """(init_body, track_body) of the step, each (state, dense inputs,
+    draws) -> (state, metrics)."""
     check_slice(cfg)
     tr = cfg.tracking
     Kobj = cfg.shapes.max_objects
@@ -108,7 +172,7 @@ def make_frame_step(cfg: VDOConfig, device="cuda"):
         lab = torch.clamp(dyn_last.sem_label, 0, 255)
         counts = frontend.segment_sum(
             ok.to(torch.float32), torch.where(ok, lab, 0).to(torch.int64), 256)
-        counts[0] = 0.0
+        counts = frontend.zero_first(counts)
         idx, tv = select.masked_top_k(counts, counts > 0, L_tab)
         return torch.where(tv, idx, 0).to(torch.int32)
 
@@ -121,7 +185,7 @@ def make_frame_step(cfg: VDOConfig, device="cuda"):
         else:
             seg = inputs["seg"]
         prep = prep_fn(inputs["rgb"], inputs["depth_raw"], inputs["flow"],
-                       seg, draws)
+                       seg, draws, inputs.get("fast_scores"))
         depth = prep["depth"]
         stat_cur, dyn_cur = inherit_fn(last.static, last.dynamic, depth, seg)
         cam_out = camera_fn(last.static, stat_cur["xy"], stat_cur["depth"],
@@ -189,7 +253,7 @@ def make_frame_step(cfg: VDOConfig, device="cuda"):
 
     def init_body(state: StreamState, inputs, draws: FrameDraws):
         prep = prep_fn(inputs["rgb"], inputs["depth_raw"], inputs["flow"],
-                       inputs["seg"], draws)
+                       inputs["seg"], draws, inputs.get("fast_scores"))
         stat, dyn = init_fn(prep["stat_cand"], prep["obj_cand"])
         new_state = dataclasses.replace(state, frame=FrameState(
             static=stat, dynamic=dyn, T_cw=eye4, T_cw_gt=eye4, velocity=eye4,
@@ -215,9 +279,54 @@ def make_frame_step(cfg: VDOConfig, device="cuda"):
         }
         return new_state, metrics
 
-    def step(state: StreamState, inputs, draws: FrameDraws,
+    return init_body, track_body
+
+
+def _make_batched_step(cfg: VDOConfig, device, packed: bool, finish):
+    """step(states, inputs, uniforms, initialized) over a leading stream
+    dimension; `finish(state, metrics)` maps one stream's results to the
+    tensors the step returns for it."""
+    init_body, track_body = _make_bodies(cfg, device)
+    unpack = stages.make_unpack(cfg)
+    score = stages.make_score_pyramid(cfg)
+
+    def step(states: StreamState, inputs: dict, uniforms: dict,
              initialized: bool):
+        if packed:
+            inputs = unpack(inputs)          # all streams in one pass
+        # the kernel call sits at batch level: one launch for all streams
+        inputs = dict(inputs, fast_scores=score(inputs["rgb"], batched=True))
         body = track_body if initialized else init_body
-        return body(state, inputs, draws)
+
+        def one(leaves, inp, u):
+            state, metrics = body(_unflatten(leaves), inp, UniformDraws(u))
+            return _flatten(state), finish(state, metrics)
+
+        leaves, out = torch.func.vmap(one)(_flatten(states), inputs, uniforms)
+        return _unflatten(leaves), out
 
     return step
+
+
+def make_multistream_step(cfg: VDOConfig, device="cuda"):
+    """The step for S streams on one device (multistream.py:491-520).
+
+    Returns pstep(states, inputs, uniforms, initialized) -> (states,
+    metrics, fleet): `states` a StreamState with a leading S
+    (`stack_states`), `inputs` the dense inputs with a leading S,
+    `uniforms` the draws of pipeline/draws.py:frame_uniforms with a leading
+    S, `initialized` one host bool for all streams.  `metrics` holds every
+    stream's; `fleet` the cross-stream reductions, plain means and sums on
+    the one device.
+    """
+    step = _make_batched_step(cfg, device, packed=False,
+                              finish=lambda state, metrics: metrics)
+
+    def pstep(states, inputs, uniforms, initialized: bool):
+        states, metrics = step(states, inputs, uniforms, initialized)
+        fleet = {"mean_t_rpe": metrics["t_rpe"].mean(),
+                 "mean_r_rpe": metrics["r_rpe"].mean(),
+                 "total_objects": metrics["n_objects"].sum()}
+        return states, metrics, fleet
+
+    return pstep

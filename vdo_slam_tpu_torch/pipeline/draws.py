@@ -4,9 +4,18 @@ The JAX step splits a PRNG key and draws in four places: the object
 candidates' priority (vdo_slam_tpu/ops/frontend.py:85), the camera RANSAC
 picks (solvers/ransac.py:164, via stages.py:194), the per-slot object
 RANSAC picks (stages.py:384) and the renewal priority (stages.py:570).  Here
-the step asks an object with those four methods, so the tracker can draw
-from a seeded torch.Generator and a test can replay the JAX package's
-draws exactly.
+the step asks an object with those four methods, so a test can replay the
+JAX package's draws exactly.
+
+The trackers draw a frame's four uniform tensors up front
+(`frame_uniforms`) from a generator re-seeded for that frame, and hand the
+step a `UniformDraws` over them.  The JAX tracker pre-splits MAX_FRAMES
+keys and frame f uses key f % MAX_FRAMES (fused.py:160-164, 445, 501-506);
+here frame f's draws are a function of (cfg.seed, f % MAX_FRAMES) alone:
+they do not depend on the chunk size, on a padded tail chunk, or on
+whether the frame runs alone or as one stream of a batch.  Drawn outside
+the step, they can also be mapped over streams by `torch.func.vmap`,
+which a generator cannot.
 """
 
 from __future__ import annotations
@@ -15,7 +24,12 @@ from typing import Protocol
 
 import torch
 
+from ..config import VDOConfig
+from ..ops.frontend import object_grid_size
+
 Tensor = torch.Tensor
+
+MAX_FRAMES = 8192  # length of the draw ring (FusedTracker.MAX_FRAMES)
 
 
 class FrameDraws(Protocol):
@@ -32,31 +46,56 @@ class FrameDraws(Protocol):
         """(n,) uniform [0, 1) priorities of the renewal candidates."""
 
 
-class TorchDraws:
-    """FrameDraws from one torch.Generator on the step's device.  Picks are
-    floor(u * n_valid) of uniform u, so no draw reads the device."""
+def uniform_shapes(cfg: VDOConfig) -> dict:
+    """The shapes of the four uniform tensors one frame step consumes."""
+    sh = cfg.shapes
+    n_grid = object_grid_size(cfg.camera.height, cfg.camera.width,
+                              cfg.frontend.obj_sample_step)
+    return {"object_priority": (n_grid,),
+            "camera_picks": (sh.ransac_samples, 3),
+            "object_picks": (sh.max_objects, sh.ransac_samples, 3),
+            "renew_priority": (sh.max_dynamic,)}
 
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-        self.device = generator.device
 
-    def _uniform(self, shape) -> Tensor:
-        return torch.rand(shape, generator=self.generator, device=self.device)
+def frame_uniforms(cfg: VDOConfig, frame_id: int,
+                   generator: torch.Generator) -> dict:
+    """The uniform [0, 1) tensors of frame `frame_id`, drawn in a fixed
+    order from `generator` re-seeded with (cfg.seed, frame_id mod
+    MAX_FRAMES)."""
+    generator.manual_seed(cfg.seed * MAX_FRAMES + frame_id % MAX_FRAMES)
+    return {name: torch.rand(shape, generator=generator,
+                             device=generator.device)
+            for name, shape in uniform_shapes(cfg).items()}
 
-    def _picks(self, shape, n_valid: Tensor) -> Tensor:
+
+class UniformDraws:
+    """FrameDraws over pre-drawn uniforms (`frame_uniforms`).  Picks are
+    floor(u * n_valid), so no draw reads the device."""
+
+    def __init__(self, uniforms: dict):
+        self.u = uniforms
+
+    def _take(self, name: str, shape) -> Tensor:
+        u = self.u[name]
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"{name}: the step asks for {tuple(shape)}, "
+                             f"{tuple(u.shape)} were drawn")
+        return u
+
+    def _picks(self, name: str, shape, n_valid: Tensor) -> Tensor:
         n = n_valid.reshape(n_valid.shape + (1,) * len(shape))
-        u = self._uniform(n_valid.shape + tuple(shape))
+        u = self._take(name, tuple(n_valid.shape) + tuple(shape))
         picks = (u * n.to(torch.float32)).to(torch.int64)
         return torch.minimum(picks, n - 1)
 
     def object_priority(self, n: int) -> Tensor:
-        return self._uniform((n,))
+        return self._take("object_priority", (n,))
 
     def camera_picks(self, n_samples: int, n_valid: Tensor) -> Tensor:
-        return self._picks((n_samples, 3), n_valid)
+        return self._picks("camera_picks", (n_samples, 3), n_valid)
 
     def object_picks(self, n_samples: int, n_valid: Tensor) -> Tensor:
-        return self._picks((n_samples, 3), n_valid)
+        return self._picks("object_picks", (n_samples, 3), n_valid)
 
     def renew_priority(self, n: int) -> Tensor:
-        return self._uniform((n,))
+        return self._take("renew_priority", (n,))

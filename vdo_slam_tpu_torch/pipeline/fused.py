@@ -1,22 +1,40 @@
 """Fused-mode tracker — port of vdo_slam_tpu/pipeline/fused.py.
 
-Drives the fused frame step (parallel/multistream.py) one frame per call
-and archives every frame into MapState on the host.  Each frame's outputs
-are packed on the device into one float32 vector and come back in one
-device-to-host copy, started right after the step is queued; the previous
-frame is archived while the device works, so `grab_frame` reports the
-frame before the one it was given and `flush` reports the last.
+Drives the fused frame step (parallel/multistream.py) and archives every
+frame into MapState on the host.  A frame goes to the device as ONE pinned
+int16 wire buffer (io/packing.py; a pre-packed frame's buffer is taken as
+it is) and is decoded there.  Each frame's outputs are packed on the
+device into one float32 vector.
 
-The window-BA trigger of the original (fused.py:316-322) fires on the
-archived frame, with the window end pinned to the archive's length, and
-runs the solve at once on this thread.  The original runs it on a
-background thread; the results are the same, because the solves are
-strictly sequential, each is pinned to its n_frames, and the fused device
-state never reads the refined values back.  A solve that raises fails the
-run (the original counts it and goes on).
+`grab_frame` runs one frame per call: the output vector's copy to a pinned
+host buffer is queued right behind the step, and the previous frame is
+archived while the device works, so a call reports the frame before the
+one it was given and `flush` reports the last.
 
-Left out (each listed in ROADMAP.md): the packed wire, chunked multi-frame
-steps, batched drains, the key ring and the stage-time probe.
+`grab_chunk` runs `fused_chunk` frames per call.  The JAX package unrolls
+a lax.scan over the chunk inside one program; eager PyTorch has nothing to
+unroll, so the chunk goes up in one (C, wire_len) transfer, its frames are
+stepped in a Python loop with no host sync between them, and the C output
+vectors are stacked on the device and copied back in one transfer.  Finished chunks
+wait in a batch; every `fused_drain_chunks`-th chunk the batch is archived
+in frame order.  The JAX package fetches and archives a batch on a drainer
+thread and hands out its reports when the thread is done; here the copies
+were queued asynchronously when each chunk was dispatched, so the drain
+waits on the batch's last CUDA event and archives on the calling thread.
+Which frames are archived, their order and the reports returned (by
+`grab_chunk` and `flush` together) are the JAX package's.
+
+The window-BA trigger (fused.py:316-322) fires on the archived frame, with
+the window end pinned to the archive's length, and runs the solve at once
+on this thread.  The original runs it on a background thread; the results
+are the same, because the solves are strictly sequential, each is pinned to
+its n_frames, and the fused device state never reads the refined values
+back.  A solve that raises fails the run (the original counts it and goes
+on).
+
+Frame f's random draws depend on (cfg.seed, f mod MAX_FRAMES) only
+(pipeline/draws.py), the port's form of the JAX tracker's pre-split key
+ring.  Left out: the stage-time probe (`calibrate_stage_times`).
 """
 
 from __future__ import annotations
@@ -28,8 +46,9 @@ import torch
 
 from ..config import OMD, VDOConfig
 from ..io.dataset import FrameData
+from ..io.packing import pack_frame, wire_kwargs
 from ..parallel.multistream import make_frame_step, make_stream_state
-from .draws import TorchDraws
+from . import draws as draws_mod
 from .map_state import MapState
 from .tracking import _np_inv, obj_pose_parsing_kt, obj_pose_parsing_ox
 
@@ -100,21 +119,35 @@ def unpack_host(vec: np.ndarray, B: int, D: int, K: int) -> dict:
 
 
 class FusedTracker:
-    """Single-stream tracker built on the fused frame step."""
+    """Single-stream tracker built on the fused frame step.
+
+    build_step=False makes a tracker that only stages, archives and
+    triggers window solves (the host half the S-stream system uses, one per
+    stream): it builds no step and no device state.
+    """
+
+    MAX_FRAMES = draws_mod.MAX_FRAMES
 
     def __init__(self, cfg: VDOConfig, game_map: MapState | None = None,
-                 device="cuda"):
+                 device="cuda", build_step: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FusedTracker(device='cuda'): no CUDA device; pass "
+                "device='cpu' to run on the CPU")
         self.map = game_map if game_map is not None else MapState()
-        self.step = make_frame_step(cfg, self.device)
-        self.state = make_stream_state(cfg, self.device)
+        self.chunk = max(int(cfg.tracking.fused_chunk), 1)
+        self.drain_chunks = max(int(cfg.tracking.fused_drain_chunks), 1)
+        if build_step:
+            self.step = make_frame_step(cfg, self.device, packed=True)
+            self.state = make_stream_state(cfg, self.device)
         self.initialized = False  # the JAX state's flag, kept on the host
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(cfg.seed)
-        self.draws = TorchDraws(generator)
+        self._generator = torch.Generator(device=self.device)
         self.frame_id = 0
         self.origin_inv: np.ndarray | None = None
+        # GT sem labels of the last STAGED frame (staging runs strictly in
+        # frame order); None until frame 0 is staged
         self._stage_last_sems: set[int] | None = None
         self._last_obj_rows = np.zeros((0, 10), np.float32)
         self._last_T_wc_gt = np.eye(4, dtype=np.float32)
@@ -122,6 +155,8 @@ class FusedTracker:
         # fills them from its probe (not ported), so they stay zero
         self._stage_ms = np.zeros(5, np.float32)
         self._pending = None
+        self._pending_chunk = None
+        self._pending_batch: list = []
         # window BA: System sets the hook, (map, n_frames) -> report dict
         self.local_ba_hook = None
         self.ba_health: list[dict] = []
@@ -153,50 +188,126 @@ class FusedTracker:
                 out[int(r[1])] = T_wc_gt @ obj_pose_parsing_kt(r)
         return out
 
+    def wire(self, fd) -> np.ndarray:
+        """The frame's int16 wire buffer: a pre-packed frame's own
+        (io/packed_dataset.py), else packed here under the config's wire."""
+        pre = getattr(fd, "packed", None)
+        if pre is not None:
+            return np.asarray(pre)
+        return pack_frame(np.asarray(fd.rgb, np.float32),
+                          np.asarray(fd.depth_raw, np.float32),
+                          np.asarray(fd.flow, np.float32),
+                          np.asarray(fd.mask),
+                          **wire_kwargs(self.cfg.tracking))
+
+    def _put(self, x, dtype) -> torch.Tensor:
+        """A host array on the device: through a pinned buffer and an
+        asynchronous copy on a CUDA device."""
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=dtype))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def device_inputs(self, fd: FrameData) -> dict:
-        """A frame's tensors on the device, plus its host GT pose."""
+        """Stage a frame on the device: ONE packed int16 transfer plus its
+        GT pose and labels; callable ahead of time, so the upload queues
+        behind the previous frame's step."""
         T_cw_gt = self._gt_pose(fd.pose_gt_raw)
-
-        def put(x, dtype):
-            t = torch.from_numpy(np.ascontiguousarray(x, dtype=dtype))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            return t
-
         return {
-            "rgb": put(fd.rgb, np.float32),
-            "depth_raw": put(fd.depth_raw, np.float32),
-            "flow": put(fd.flow, np.float32),
-            "seg": put(fd.mask, np.int32),
-            "T_cw_gt": put(T_cw_gt, np.float32),
-            "gt_sems": put(self._stage_gt_sems(fd), np.int32),
+            "packed": self._put(self.wire(fd), np.int16),
+            "T_cw_gt": self._put(T_cw_gt, np.float32),
+            "gt_sems": self._put(self._stage_gt_sems(fd), np.int32),
             "_T_cw_gt_host": T_cw_gt,
         }
 
-    def grab_frame(self, fd: FrameData) -> dict:
+    def device_inputs_chunk(self, fds) -> dict:
+        """Stage a CHUNK of frames on the device in one (C, wire_len)
+        transfer."""
+        gts = [self._gt_pose(fd.pose_gt_raw) for fd in fds]
+        sems = [self._stage_gt_sems(fd) for fd in fds]
+        return {
+            "packed": self._put(np.stack([self.wire(fd) for fd in fds]),
+                                np.int16),
+            "T_cw_gt": self._put(np.stack(gts), np.float32),
+            "gt_sems": self._put(np.stack(sems), np.int32),
+            "_T_cw_gt_host": gts,
+        }
+
+    def frame_draws(self, frame_id: int) -> dict:
+        """The uniform draws of frame `frame_id` (pipeline/draws.py)."""
+        return draws_mod.frame_uniforms(self.cfg, frame_id, self._generator)
+
+    def _to_host(self, vec: torch.Tensor):
+        """Queue the copy of an output tensor to a pinned host buffer;
+        returns (host tensor, event to wait on or None)."""
+        if self.device.type != "cuda":
+            return vec, None
+        host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+        host.copy_(vec, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def grab_frame(self, fd: FrameData, staged: dict | None = None) -> dict:
         """Queue this frame's step and its output copy, then archive the
         PREVIOUS frame; returns that frame's report (or a placeholder with
-        "pipelining" on the first call)."""
+        "pipelining" on the first call).  `staged`: the frame's
+        `device_inputs`, where the caller staged them ahead."""
         t0 = time.perf_counter()
-        inputs = self.device_inputs(fd)
+        inputs = dict(staged) if staged is not None \
+            else self.device_inputs(fd)
         T_cw_gt = inputs.pop("_T_cw_gt_host")
-        self.state, metrics = self.step(self.state, inputs, self.draws,
+        draws = draws_mod.UniformDraws(self.frame_draws(self.frame_id))
+        self.state, metrics = self.step(self.state, inputs, draws,
                                         self.initialized)
         self.initialized = True
-        vec = pack_outputs(self.state, metrics)
-        if self.device.type == "cuda":
-            host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
-            host.copy_(vec, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            host, done = vec, None
+        host, done = self._to_host(pack_outputs(self.state, metrics))
         rep_prev = self._drain_pending()
         self._pending = (fd, T_cw_gt, self.frame_id, host, done, t0)
         self.frame_id += 1
         if rep_prev is None:
             rep_prev = {"frame_id": -1, "pipelining": True}
         return rep_prev
+
+    def grab_chunk(self, fds, staged: dict | None = None,
+                   n_real: int | None = None) -> list[dict]:
+        """len(fds) == fused_chunk frames in one call; returns the reports
+        of the frames archived by this call (every fused_drain_chunks-th
+        call archives the batch of chunks before this one).  Call flush()
+        for the rest.
+
+        n_real < chunk marks a PADDED tail chunk (trailing entries repeat
+        the last real frame, as the JAX package pads its tail); only the
+        first n_real frames are archived and reported."""
+        if len(fds) != self.chunk:
+            raise ValueError(f"grab_chunk takes fused_chunk = {self.chunk} "
+                             f"frames, got {len(fds)}")
+        if n_real is None:
+            n_real = self.chunk
+        t0 = time.perf_counter()
+        inputs = dict(staged) if staged is not None \
+            else self.device_inputs_chunk(fds)
+        gts = inputs.pop("_T_cw_gt_host")
+        vecs = []
+        for c in range(self.chunk):      # no host sync between frames
+            draws = draws_mod.UniformDraws(self.frame_draws(self.frame_id + c))
+            self.state, metrics = self.step(
+                self.state, {k: v[c] for k, v in inputs.items()}, draws,
+                self.initialized)
+            self.initialized = True
+            vecs.append(pack_outputs(self.state, metrics))
+        host, done = self._to_host(torch.stack(vecs))   # one (C, n) copy
+        if self._pending_chunk is not None:
+            self._pending_batch.append(self._pending_chunk)
+            self._pending_chunk = None
+        reps = []
+        if len(self._pending_batch) >= self.drain_chunks:
+            batch, self._pending_batch = self._pending_batch, []
+            reps = self._drain_batch_now(batch)
+        self._pending_chunk = (list(fds), gts, self.frame_id, host, done, t0,
+                               n_real)
+        self.frame_id += self.chunk
+        return reps
 
     def _drain_pending(self):
         if self._pending is None:
@@ -207,9 +318,36 @@ class FusedTracker:
             done.synchronize()
         return self._finish_frame(fd, T_cw_gt, fid, host.numpy(), t0)
 
-    def flush(self) -> dict | None:
-        """Archive the last in-flight frame (call once after the loop)."""
-        return self._drain_pending()
+    def _drain_batch_now(self, batch) -> list[dict]:
+        """Archive a batch of chunks in frame order.  Their copies were
+        queued in order on one stream, so the last one's event covers all."""
+        if batch[-1][4] is not None:
+            batch[-1][4].synchronize()
+        reps = []
+        for fds, gts, fid0, host, _, t0, n_real in batch:
+            vecs_np = host.numpy()
+            reps.extend(self._finish_frame(fds[c], gts[c], fid0 + c,
+                                           vecs_np[c], t0)
+                        for c in range(n_real))
+        return reps
+
+    def _drain_pending_chunk(self) -> list[dict]:
+        """Archive every chunk still in flight, in order."""
+        if self._pending_chunk is not None:
+            self._pending_batch.append(self._pending_chunk)
+            self._pending_chunk = None
+        if not self._pending_batch:
+            return []
+        batch, self._pending_batch = self._pending_batch, []
+        return self._drain_batch_now(batch)
+
+    def flush(self) -> dict | list | None:
+        """Archive the last in-flight frame or chunks (call once after the
+        loop); returns a chunked drive's remaining reports as a list, else
+        the last frame's report."""
+        rep = self._drain_pending()
+        reps = self._drain_pending_chunk()
+        return reps if reps else rep
 
     def _finish_frame(self, fd, T_cw_gt, fid, vec_np, t0):
         sh = self.cfg.shapes

@@ -4,9 +4,12 @@ vdo_slam_tpu/pipeline/stages.py.
 Each `make_*` builds a stage for one configuration and device.  The vmaps
 of the JAX package over object slots and RANSAC hypotheses are leading
 batch dimensions; the random draws come from a `FrameDraws` object
-(pipeline/draws.py).  Only what the fused path of the slice runs is here:
-the joint-flow camera and object solves, the compacted object solve, and a
-camera with zero distortion (the port's System raises on anything else).
+(pipeline/draws.py).  Only what the fused path runs is here: the wire
+decode, the joint-flow camera and object solves, the compacted object
+solve, and a camera with zero distortion (the port's System raises on
+anything else).  Every stage also runs under `torch.func.vmap` over a
+leading stream dimension, except the FAST scoring (`make_score_pyramid`),
+which takes the streams as a batch: a kernel launch cannot be mapped.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from ..config import VDOConfig
 from ..geometry import camera as cam
 from ..geometry import metrics, se3
+from ..io.packing import unpack_frame, wire_kwargs
 from ..ops import fast, frontend, select
 from ..ops.image import gather_int, preprocess_depth, rgb_to_gray
 from ..solvers import FlowLMParams, flow_lm, ransac
@@ -59,21 +63,6 @@ def check_slice(cfg: VDOConfig) -> None:
         raise NotImplementedError(
             "tracking.joint_flow=False: the reprojection-only LM "
             "(solvers/reproj_lm.py) is not ported")
-    wire = {"wire_flow_half": tr.wire_flow_half,
-            "wire_flow_down": tr.wire_flow_down != 0,
-            "wire_flow_delta": tr.wire_flow_delta,
-            "wire_depth_down": tr.wire_depth_down != 1,
-            "wire_depth_resid": tr.wire_depth_resid != 0,
-            "wire_entropy": tr.wire_entropy}
-    on = [k for k, v in wire.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"tracking.{', tracking.'.join(on)}: the packed wire "
-            f"(io/packing.py) is not ported; the port takes dense frames")
-    if tr.fused_chunk > 1:
-        raise NotImplementedError(
-            "tracking.fused_chunk > 1: chunked multi-frame steps are not "
-            "ported")
 
 
 def obj_solver_cap(cfg: VDOConfig) -> int:
@@ -88,23 +77,64 @@ def obj_solver_cap(cfg: VDOConfig) -> int:
 
 
 # --------------------------------------------------------------------------
+# wire decode (the step's first stage when it is fed packed frames)
+# --------------------------------------------------------------------------
+
+def make_unpack(cfg: VDOConfig):
+    """inputs {"packed", "T_cw_gt"[, "gt_sems"]} -> the dense inputs of
+    the step (multistream.py:221-232).  Leading dimensions of the buffer
+    (a chunk's frames, the S streams) are decoded in one pass."""
+    kw = wire_kwargs(cfg.tracking)
+    hw = (cfg.camera.height, cfg.camera.width)
+
+    def unpack(inputs: dict) -> dict:
+        gray, depth_raw, flow, seg = unpack_frame(inputs["packed"], hw=hw,
+                                                  **kw)
+        dense = {k: v for k, v in inputs.items() if k != "packed"}
+        dense.update(rgb=gray, depth_raw=depth_raw, flow=flow, seg=seg)
+        return dense
+
+    return unpack
+
+
+# --------------------------------------------------------------------------
 # prepare
 # --------------------------------------------------------------------------
+
+def make_score_pyramid(cfg: VDOConfig):
+    """rgb (H, W[, 3]), or (S, H, W[, 3]) with batched=True -> the FAST
+    score maps of every pyramid level, the detector's only kernel: one
+    launch for all levels of all S frames."""
+    fe = cfg.frontend
+
+    def score(rgb, batched: bool = False):
+        gray = rgb if rgb.ndim == 2 + batched else rgb_to_gray(rgb)
+        return fast.score_pyramid(
+            gray, n_levels=fe.n_levels,
+            scale_factor=fe.scale_factor, ini_th=float(fe.ini_th_fast),
+            min_th=float(fe.min_th_fast))
+
+    return score
+
 
 def make_prepare(cfg: VDOConfig):
     B = cfg.shapes.max_static
     D = cfg.shapes.max_dynamic
     fe = cfg.frontend
     tr = cfg.tracking
+    score_fn = make_score_pyramid(cfg)
 
-    def prepare(rgb, depth_raw, flow, seg, draws: FrameDraws):
-        gray = rgb_to_gray(rgb)
+    def prepare(rgb, depth_raw, flow, seg, draws: FrameDraws, scores=None):
+        """`scores`: the frame's FAST score maps where the caller already
+        has them (the S-stream step scores all streams in one launch
+        before it maps this body over them)."""
         depth = preprocess_depth(depth_raw, tr.dataset, cfg.camera.bf,
                                  tr.depth_map_factor)
-        det = fast.detect_pyramid(
-            gray, n_features=fe.n_features, n_levels=fe.n_levels,
-            scale_factor=fe.scale_factor, ini_th=float(fe.ini_th_fast),
-            min_th=float(fe.min_th_fast), cell=fe.fast_cell)
+        if scores is None:
+            scores = score_fn(rgb)
+        det = fast.select_pyramid(scores, n_features=fe.n_features,
+                                  scale_factor=fe.scale_factor,
+                                  cell=fe.fast_cell)
         xy, v, score = det["xy"], det["valid"], det["score"]
         stat = frontend.static_candidates(xy, v, score, depth, flow, seg,
                                           tr.th_depth_bg, B)
@@ -287,8 +317,8 @@ def make_objects_stage(cfg: VDOConfig, device):
         init_inlier = empty.scatter(1, tgt, init_in)[:, :Dn]
         # flow-refined current positions for inliers (Optimizer.cc:2942-2954)
         flat_t = torch.where(okm & out["inlier"], idx, Dn).reshape(-1)
-        uv_new = torch.cat([cur_xy, cur_xy.new_zeros(1, 2)])
-        uv_new[flat_t] = (uv_l + out["flow"]).reshape(-1, 2)
+        uv_new = torch.cat([cur_xy, cur_xy.new_zeros(1, 2)]).index_put(
+            (flat_t,), (uv_l + out["flow"]).reshape(-1, 2))
         return {
             "G": G, "H": H, "init_inlier": init_inlier,
             "n_init": n_init, "inlier": inl, "n_inlier": inl.sum(dim=-1),
@@ -473,7 +503,7 @@ def make_device_classifier(cfg: VDOConfig, device):
                   & (n_boundary / ones_safe <= tr.boundary_frac_thres)
                   & (n_static / ones_safe <= tr.sf_ds_thres)
                   & (d_sum / ones_safe <= tr.th_depth_obj))
-        is_obj[0] = False
+        is_obj = frontend.zero_first(is_obj)
         # per-label class for features: 2 active object, 0 static, -1 dropped
         lab_class = torch.where(
             is_obj, 2, torch.where(n_static / ones_safe > tr.sf_ds_thres, 0, -1))
