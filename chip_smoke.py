@@ -50,9 +50,32 @@ Phases, in order (any failure raises and exits nonzero):
      within 1e-3 m and 0.01 deg, equal object-estimate counts).  Prints
      aggregate and per-stream fps beside the solo fps of the same call,
      launches and device busy share of one batched step and one solo step,
-     and peak memory.
+     and peak memory;
+  8. the default path: System(cfg, device="cuda"), so mode "reference"
+     (the host Tracker) with both BA passes, over the 100 frames of phase 5
+     under bench_ba_config, each frame uploaded dense as the JAX tracker
+     uploads it.  Checks: 100 frames, one FAST launch per frame, 6 window
+     solves none of which raises its cost, a full BA that lowers it, and
+     metrics() and metrics(refined=True) within the gates against the JAX
+     package's System(mode="reference") (JAX_REF_HOST).  Prints fps, the
+     five spans of timing(), peak memory, the host syncs, copies and
+     kernel launches per steady frame (torch.profiler), and the gap between
+     one frame on the card and the same frame on the CPU, both started from
+     the same tracker state with the same draws;
+  9. the options, 25 frames each through System(mode="reference"), BA off,
+     each gated against the JAX package's run: configs/omd.yaml on a
+     640x480 OMD scene (grid-sampled keypoints: no FAST launch);
+     joint_flow=False with depth noise on the bench scene; the bench scene
+     rendered through a barrel lens with k1/k2 configured, beside the
+     unconfigured control (configured cam_t under 0.4x the control's); and
+     the distorted run in mode "fused";
+  10. the CLI, `vdo_slam_tpu_torch.run.main` on its synthetic scene on the
+     card (report keys and result files), and a checkpoint of the host
+     Tracker after frame 6 resumed in a fresh one: every pose equal to the
+     uninterrupted run's within 1e-6.
 Phases 4 and 5 use `bench_config` / `bench_ba_config` (no wire flags),
-phases 6 and 7 `wire_config` (tpu_fast's wire flags).
+phases 6 and 7 `wire_config` (tpu_fast's wire flags).  Each phase prints
+its seconds.
 The line before the last holds the kernels' JSON record, the one before it
 the card as nvidia-smi reports it; the last line is the device JSON.
 """
@@ -135,6 +158,58 @@ JAX_REF_WIRE = {
                     (0.060070980340242386, 0.04095756635069847)],
     "wire_bytes_per_frame": 1529564,
 }
+# The JAX package's numbers for phases 8 and 9: System(mode="reference")
+# (and, for "distorted_fused", mode "fused") on the same scenes and configs,
+# printed by `JAX_PLATFORMS=cpu python tools/jax_reference_mode.py` (JAX
+# 0.9.0 on the CPU).  "reference": 100 frames with both BA passes, the
+# metrics before and after the full BA; the others 25 frames, BA off.
+JAX_REF_HOST = {
+    "reference": {
+        "initial": {
+            "cam_t_rpe": 0.00024247035099750648,
+            "cam_r_rpe_deg": 0.00016012295710519524,
+            "obj_t_rpe": 0.0004426540884143084,
+            "obj_r_rpe_deg": 0.006260969186353022,
+            "n_obj_estimates": 136,
+        },
+        "refined": {
+            "cam_t_rpe": 0.00024323345778188326,
+            "cam_r_rpe_deg": 0.00015609814761453891,
+            "obj_t_rpe": 0.0003848462170828819,
+            "obj_r_rpe_deg": 0.0024580376888249816,
+            "n_obj_estimates": 136,
+        },
+        "window_solves": 6,
+    },
+    "omd": {"cam_t_rpe": 0.0002792332855918336,
+            "cam_r_rpe_deg": 0.0003302509176934207,
+            "obj_t_rpe": 0.0006180943200888578,
+            "obj_r_rpe_deg": 0.007428061283589659,
+            "n_obj_estimates": 48},
+    "nonjoint": {"cam_t_rpe": 0.0002598692791910241,
+                 "cam_r_rpe_deg": 0.0002873487476294675,
+                 "obj_t_rpe": 0.0004821884528306934,
+                 "obj_r_rpe_deg": 0.004928150145535853,
+                 "n_obj_estimates": 48},
+    "distorted": {"cam_t_rpe": 0.0029093472802023275,
+                  "cam_r_rpe_deg": 0.0018210809582279639,
+                  "obj_t_rpe": 0.00281619685968811,
+                  "obj_r_rpe_deg": 0.006107384404701737,
+                  "n_obj_estimates": 48},
+    "control": {"cam_t_rpe": 0.02716557712004608,
+                "cam_r_rpe_deg": 0.03372432497959165,
+                "obj_t_rpe": 0.02310873419143415,
+                "obj_r_rpe_deg": 0.3489464722573492,
+                "n_obj_estimates": 48},
+    "distorted_fused": {"cam_t_rpe": 0.0029932012980219366,
+                        "cam_r_rpe_deg": 0.002184947983457314,
+                        "obj_t_rpe": 0.0027957632458613566,
+                        "obj_r_rpe_deg": 0.006363972357767777,
+                        "n_obj_estimates": 48},
+}
+DIST = (-0.28, 0.07, 0.0, 0.0, 0.0)    # tests/test_pipeline_e2e.py:258
+N_OPT_FRAMES = 25
+RESUME_TOL = 1e-6
 N_BA_FRAMES = 100
 N_STREAMS, N_STREAM_FRAMES = 4, 40   # bench.py --streams 4 (bench.py:40, 110)
 STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
@@ -937,6 +1012,342 @@ def stream_path(pds, cfg, device, card: str) -> dict:
             "worst_gap": worst}
 
 
+def _count_syncs(prof) -> tuple[int, int]:
+    """(host waits, host<->device copies) the CPU side of a profile
+    recorded: CUDA runtime calls that block the host (stream, device and
+    event synchronizes) and memcpy calls."""
+    names = [e.name for e in prof.events()]
+    syncs = sum(1 for n in names if n.startswith("cuda")
+                and "Synchronize" in n)
+    copies = sum(1 for n in names if n.startswith("cudaMemcpy"))
+    return syncs, copies
+
+
+def steady_frames(cfg, ds, device, card: str, n_warm: int = 3,
+                  n_prof: int = 3) -> dict:
+    """Phase 8b: host syncs, copies and kernel launches per frame of the
+    host Tracker in steady state (frames n_warm .. n_warm + n_prof - 1
+    under torch.profiler, BA off), and the device busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vdo_slam_tpu_torch.pipeline import System
+
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                  device=device)
+    for f in range(n_warm):
+        sysm.track_rgbd(ds[f])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in range(n_warm, n_warm + n_prof):
+            sysm.track_rgbd(ds[f])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    launches = sum(1 for e in dev
+                   if not e.name.startswith(("Memcpy", "Memset")))
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    syncs, copies = _count_syncs(prof)
+    out = {"syncs_per_frame": syncs / n_prof,
+           "copies_per_frame": copies / n_prof,
+           "launches_per_frame": launches / n_prof,
+           "device_ms_per_frame": dev_ms / n_prof,
+           "wall_ms_per_frame": wall / n_prof}
+    print(f"reference path, steady frames {n_warm}-{n_warm + n_prof - 1} "
+          f"under torch.profiler: {out['launches_per_frame']:.1f} kernel "
+          f"launches, {out['syncs_per_frame']:.1f} host waits "
+          f"(cuda*Synchronize), {out['copies_per_frame']:.1f} memcpy calls "
+          f"per frame; {out['device_ms_per_frame']:.3f} ms on the device in "
+          f"{out['wall_ms_per_frame']:.3f} ms per frame, busy share "
+          f"{dev_ms / wall:.4f} [{card}]")
+    return out
+
+
+def frame_gap(cfg, ds, device, card: str, fid: int = 5) -> dict:
+    """Phase 8c: one frame on the card and on the CPU, both started from
+    the state of the card's tracker after frame fid - 1 (through a
+    checkpoint payload) with the same draws."""
+    import pickle
+    import tempfile
+
+    from vdo_slam_tpu_torch.pipeline import System
+    from vdo_slam_tpu_torch.pipeline.draws import UniformDraws, frame_uniforms
+    from vdo_slam_tpu_torch.utils.checkpoint import (save_checkpoint,
+                                                     tracker_from_numpy)
+
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                  device=device)
+    for f in range(fid):
+        sysm.track_rgbd(ds[f])
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(sysm.tracker, f"{tmp}/ck.pkl")
+        with open(f"{tmp}/ck.pkl", "rb") as fh:
+            payload = pickle.load(fh)
+    u = frame_uniforms(cfg, fid, torch.Generator())
+    reps, secs = {}, {}
+    for name, d in (("card", device), ("cpu", torch.device("cpu"))):
+        tr = tracker_from_numpy(payload, cfg, device=d)
+        draws = UniformDraws({k: v.to(d) for k, v in u.items()})
+        tr._frame_draws = lambda dr=draws: dr
+        t0 = time.perf_counter()
+        reps[name] = tr.grab_frame(ds[fid])
+        secs[name] = time.perf_counter() - t0
+    dt, dr = _pose_gap(reps["card"]["T_cw"], reps["cpu"]["T_cw"])
+
+    def ids(rep):
+        return [(o["model_label"], o["sem_label"], o["status"])
+                for o in rep["objects"]]
+
+    same = ids(reps["card"]) == ids(reps["cpu"])
+    h_gap = max([float(np.linalg.norm(a["H"][:3, 3] - b["H"][:3, 3]))
+                 for a, b in zip(reps["card"]["objects"],
+                                 reps["cpu"]["objects"]) if b["status"]]
+                or [0.0])
+    print(f"frame {fid} from the same state, card vs CPU: T_cw gap "
+          f"{dt:.3e} m, {dr:.3e} deg; camera inliers "
+          f"{reps['card']['n_inlier_cam']} / {reps['cpu']['n_inlier_cam']}; "
+          f"objects {'equal' if same else 'DIFFER'} ({ids(reps['card'])}), "
+          f"largest H translation gap {h_gap:.3e} m; {secs['card']:.3f} s on "
+          f"the card, {secs['cpu']:.3f} s on the CPU [{card}]")
+    if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG and same
+            and h_gap < 5e-3):
+        raise RuntimeError("the frame on the card and on the CPU disagree")
+    return {"t_gap": dt, "r_gap": dr, "h_gap": h_gap}
+
+
+def reference_path(scene, device, card: str) -> dict:
+    """Phase 8: the default entry point, System(cfg) in mode "reference"
+    with both BA passes, over the 100 frames of the bench scene."""
+    from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.pipeline import System, Tracker
+
+    cfg = bench_ba_config()
+    ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
+    n = len(ds)
+    sysm = System(cfg, device=device)
+    if not isinstance(sysm.tracker, Tracker):
+        raise RuntimeError("System(cfg) did not build the host Tracker")
+    health = []
+    hook = sysm.tracker.local_ba_hook
+    sysm.tracker.local_ba_hook = lambda m: health.append(hook(m))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    reports = sysm.run_sequence(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    full = sysm.full_ba_report
+    lba_s = sum(sysm.map.lba_times) / 1e3
+    tracking_s = (wall - full["t_build_s"] - full["t_solve_s"]
+                  - full["t_writeback_s"] - lba_s)
+    print(f"reference path: {len(reports)} frames in {wall:.3f} s (host "
+          f"clock, tracking + {len(health)} window solves + full BA); "
+          f"{n / tracking_s:.3f} fps over tracking alone, "
+          f"{n / (tracking_s + lba_s):.3f} fps with the window solves "
+          f"({lba_s:.3f} s) [{card}]")
+    print(f"reference path timing() spans (ms per frame): "
+          f"{json.dumps(sysm.timing())} [{card}]")
+    print(f"reference path peak device memory (max_memory_allocated): "
+          f"{peak} bytes ({peak / 2**20:.1f} MiB) [{card}]")
+    print(f"reference path: {launches} FAST kernel launches in {n} frames")
+    if len(reports) != n or launches != n:
+        raise RuntimeError(f"{len(reports)} frames reported and {launches} "
+                           f"FAST launches, want {n} and {n}")
+    if [r["frame_id"] for r in reports] != list(range(n)):
+        raise RuntimeError("the reports are not in frame order")
+    want = JAX_REF_HOST["reference"]["window_solves"]
+    if len(health) != want:
+        raise RuntimeError(f"{len(health)} window solves, want {want}")
+    for i, (h, ms) in enumerate(zip(health, sysm.map.lba_times)):
+        print(f"window solve {i + 1}/{want}: {h['window']} poses, "
+              f"{h['n_points']} points, cost {h['cost0']:.6g} -> "
+              f"{h['cost']:.6g}; {ms:.3f} ms [{card}]")
+        if not h["cost"] <= h["cost0"]:
+            raise RuntimeError(f"window solve {i + 1} raised the cost")
+    print(f"full BA: {full['iters_run']} LM iterations, cost "
+          f"{full['cost0']:.6g} -> {full['cost']:.6g}; solve "
+          f"{full['t_solve_s']:.4f} s [{card}]")
+    if not full["cost"] < full["cost0"]:
+        raise RuntimeError("the full BA did not lower the cost")
+    if not all(np.isfinite(r["T_cw"]).all() for r in reports):
+        raise RuntimeError("non-finite pose in a report")
+    metrics = {"initial": sysm.metrics(),
+               "refined": sysm.metrics(refined=True)}
+    ref = JAX_REF_HOST["reference"]
+    gate(metrics["initial"], ref["initial"], " (reference path, before "
+         "full BA)")
+    gate(metrics["refined"], ref["refined"], " (reference path, refined)")
+    steady = steady_frames(bench_config(), ds, device, card)
+    gap = frame_gap(bench_config(), ds, device, card)
+    return {"launches": launches, "fps": n / tracking_s, "peak_bytes": peak,
+            "metrics": metrics, "steady": steady, "gap": gap,
+            "timing": sysm.timing()}
+
+
+def omd_scene_config():
+    """(scene, config) of phase 9's OMD run: configs/omd.yaml, the scene
+    rendered with its focal lengths, the principal point set to the
+    scene's image centre (tools/jax_reference_mode.py does the same)."""
+    from pathlib import Path
+
+    from vdo_slam_tpu_torch.config import load_settings
+    from vdo_slam_tpu_torch.io.synthetic import make_scene
+
+    cfg = load_settings(Path(__file__).resolve().parent / "configs"
+                        / "omd.yaml")
+    scene = make_scene(num_frames=N_OPT_FRAMES + 1, width=cfg.camera.width,
+                       height=cfg.camera.height, num_objects=2,
+                       fx=cfg.camera.fx, fy=cfg.camera.fy, seed=7)
+    K = scene.K_mat
+    return scene, cfg.replace(camera=dataclasses.replace(
+        cfg.camera, cx=float(K[0, 2]), cy=float(K[1, 2])))
+
+
+def option_paths(scene, device, card: str) -> dict:
+    """Phase 9: each option through System(mode="reference") (and the
+    distorted config once in mode "fused") over 25 frames, BA off, gated
+    against the JAX package's runs."""
+    from vdo_slam_tpu_torch.io.dataset import (SyntheticDataset,
+                                               SyntheticOMDDataset)
+    from vdo_slam_tpu_torch.io.synthetic import make_scene
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.pipeline import System
+
+    def run(name, cfg, ds, mode="reference", launches_want=None):
+        sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                      mode=mode, device=device)
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        reps = sysm.run_sequence(_View(ds, 0, N_OPT_FRAMES))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = KERNEL.launches
+        print(f"option {name} (mode {mode}): {len(reps)} frames in "
+              f"{secs:.3f} s, {launches} FAST launches [{card}]")
+        if len(reps) != N_OPT_FRAMES:
+            raise RuntimeError(f"{name}: {len(reps)} frames reported")
+        want = N_OPT_FRAMES if launches_want is None else launches_want
+        if launches != want:
+            raise RuntimeError(f"{name}: {launches} FAST launches, want "
+                               f"{want}")
+        rep = sysm.metrics()
+        gate(rep, JAX_REF_HOST[name], f" (option {name})")
+        return rep, launches
+
+    out = {}
+    t0 = time.perf_counter()
+    oscene, ocfg = omd_scene_config()
+    print(f"OMD scene {oscene.rgb.shape} made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out["omd"] = run("omd", ocfg, SyntheticOMDDataset(
+        oscene, depth_map_factor=1000.0, bf=ocfg.camera.bf),
+        launches_want=0)
+    bench = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
+    cfg = bench_config()
+    out["nonjoint"] = run("nonjoint", cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, joint_flow=False, depth_noise=True)), bench)
+    t0 = time.perf_counter()
+    dscene = make_scene(num_frames=N_OPT_FRAMES + 1, width=W, height=H,
+                        num_objects=3, fx=721.5377, seed=7, dist=DIST)
+    print(f"distorted scene {dscene.rgb.shape} made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    dds = SyntheticDataset(dscene, depth_map_factor=256.0, bf=387.5744)
+    dcfg = cfg.replace(camera=dataclasses.replace(cfg.camera, k1=DIST[0],
+                                                  k2=DIST[1]))
+    out["distorted"] = run("distorted", dcfg, dds)
+    out["control"] = run("control", cfg, dds)
+    ratio = (out["distorted"][0]["cam_t_rpe"]
+             / out["control"][0]["cam_t_rpe"])
+    print(f"distorted scene: configured cam_t / unconfigured cam_t = "
+          f"{ratio:.4f} (must be under 0.4)")
+    if not ratio < 0.4:
+        raise RuntimeError("undistortion does not beat the control")
+    out["distorted_fused"] = run("distorted_fused", dcfg, dds, mode="fused")
+    return out
+
+
+def cli_and_resume(device, card: str) -> dict:
+    """Phase 10: the CLI on the card, and a host-Tracker checkpoint after
+    frame 6 resumed in a fresh tracker."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from vdo_slam_tpu_torch import run as cli
+    from vdo_slam_tpu_torch.config import KITTI, TrackingConfig, VDOConfig
+    from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
+    from vdo_slam_tpu_torch.io.synthetic import make_scene
+    from vdo_slam_tpu_torch.pipeline import System
+    from vdo_slam_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+
+    n = 12
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--synthetic", "--frames", str(n), "--out",
+                           f"{tmp}/out", "--quiet"])
+        secs = time.perf_counter() - t0
+        rep = json.loads(buf.getvalue())
+        keys = {"metrics_initial", "metrics_refined", "timing", "frames",
+                "velocity"}
+        files = ("initial_stereo_new.txt", "refined_stereo_new.txt",
+                 "obj_mot_stereo_new.txt", "speed_estimated.txt",
+                 "dynamic_slam_graph_after_opt.g2o")
+        missing = [f for f in files if not (Path(tmp) / "out" / f).exists()]
+        print(f"CLI (run.main --synthetic --frames {n}) on the card: exit "
+              f"{rc} in {secs:.1f} s; report keys {sorted(rep)}; "
+              f"frames {rep['frames']}; metrics_refined "
+              f"{json.dumps(rep['metrics_refined'])} [{card}]")
+        if rc != 0 or set(rep) != keys or rep["frames"] != n or missing:
+            raise RuntimeError(f"CLI: exit {rc}, keys {sorted(rep)}, "
+                               f"missing files {missing}")
+
+        # the CLI's scene and config (vdo_slam_tpu_torch/run.py)
+        scene = make_scene(num_frames=n + 1, width=640, height=256,
+                           num_objects=2, seed=0)
+        cfg = VDOConfig()
+        cfg = cfg.replace(
+            camera=dataclasses.replace(cfg.camera, fx=640.0, fy=640.0,
+                                       cx=320.0, cy=128.0, width=640,
+                                       height=256, bf=40.0),
+            tracking=dataclasses.replace(TrackingConfig(), dataset=KITTI,
+                                         depth_map_factor=1.0))
+        ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
+
+        def system():
+            return System(cfg, enable_local_ba=False, enable_global_ba=False,
+                          device=device)
+
+        whole = system()
+        whole.run_sequence(ds)
+        first = system()
+        for i in range(7):                      # frames 0-6
+            first.track_rgbd(ds[i])
+        save_checkpoint(first.tracker, f"{tmp}/ck.pkl")
+        resumed = system()
+        load_checkpoint(resumed.tracker, f"{tmp}/ck.pkl")
+        for i in range(7, n):
+            resumed.track_rgbd(ds[i])
+    gap = max(float(np.abs(a - b).max())
+              for a, b in zip(whole.map.cam_pose, resumed.map.cam_pose))
+    print(f"checkpoint after frame 6, resumed in a fresh Tracker: "
+          f"{resumed.map.num_frames} frames, largest pose-entry gap to the "
+          f"uninterrupted run {gap:.3e} (tolerance {RESUME_TOL}) [{card}]")
+    if resumed.map.num_frames != n or not gap <= RESUME_TOL:
+        raise RuntimeError(f"resume: {resumed.map.num_frames} frames, pose "
+                           f"gap {gap}")
+    return {"resume_gap": gap}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -954,6 +1365,13 @@ def main() -> int:
     print(f"card: {card}")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     device = torch.device("cuda", 0)
+    t_phase = [time.perf_counter(), time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase[0]:.1f} s (script "
+              f"{now - t_phase[1]:.1f} s)")
+        t_phase[0] = now
 
     KERNEL.build()
     print(f"FAST kernel built and loaded in {KERNEL.build_seconds:.2f} s")
@@ -976,13 +1394,17 @@ def main() -> int:
     if pds[0].packed.nbytes != JAX_REF_WIRE["wire_bytes_per_frame"]:
         raise RuntimeError("the wire's length differs from the JAX package's")
     grays = stream_first_grays(pds, cfg_wire, device)
+    phase_done("1-2 (card, build, scene, packing)")
     max_err, err_batched = check_kernel(scene, device, grays)
     kern = time_pyramid(scene, device, card)
     kern_s = time_batched(scene, device, card, grays)
+    phase_done("3 (kernel against its plain version, timing)")
     path = main_path(scene, bench_config(), device, card)
+    phase_done("4 (fused tracking path)")
     dense_ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
     ba = ba_path(dense_ds, bench_ba_config(), device, card, JAX_REF_BA,
                  "BA path (dense wire)")
+    phase_done("5 (BA path)")
     wire = ba_path(pds, cfg_wire, device, card, JAX_REF_WIRE,
                    "wire path (tpu_fast wire)", solvers=False)
     for key in ("initial", "refined"):
@@ -990,7 +1412,15 @@ def main() -> int:
               f"tpu_fast wire {json.dumps(wire['metrics'][key])}")
     wire_costs(pds, dense_ds, {"wire": cfg_wire, "dense": bench_ba_config()},
                device, card)
+    phase_done("6 (wire path)")
     streams = stream_path(pds, wire_config(fused_chunk=1), device, card)
+    phase_done("7 (S-stream path)")
+    ref = reference_path(scene, device, card)
+    phase_done("8 (default path, mode reference)")
+    opts = option_paths(scene, device, card)
+    phase_done("9 (options)")
+    cli_and_resume(device, card)
+    phase_done("10 (CLI and resume)")
 
     print(json.dumps({"kernels": [{
         "name": "fast_score_pyramid",
@@ -1002,6 +1432,8 @@ def main() -> int:
         "launches_ba_path": ba["fast_launches"],
         "launches_wire_path": wire["fast_launches"],
         "launches_multistream_path": streams["launches"],
+        "launches_reference_path": ref["launches"],
+        "launches_omd_path": opts["omd"][1],
         "streams": N_STREAMS,
         "max_abs_err": max_err,
         "max_abs_err_batched": err_batched,

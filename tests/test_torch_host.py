@@ -193,11 +193,9 @@ def test_flo_roundtrip(tmp_path):
 
 
 class TestRefusals:
-    """Outside the slice, the port's System raises NotImplementedError;
-    options that were outside it once and are ported now are taken."""
-
-    PORTED = {"wire_flow_half", "wire_flow_down", "wire_entropy",
-              "fused_chunk"}
+    """Options that were outside the port once and are ported now are
+    taken: the default mode "reference" and every configuration option of
+    the JAX stages.  Nothing of System raises NotImplementedError now."""
 
     @staticmethod
     def _cfg(**tracking):
@@ -209,10 +207,12 @@ class TestRefusals:
         (dict(enable_local_ba=False, enable_global_ba=False), "mode"),
     ])
     def test_system_options(self, kwargs, word):
-        from vdo_slam_tpu_torch.pipeline import System
+        from vdo_slam_tpu_torch.pipeline import System, Tracker
 
-        with pytest.raises(NotImplementedError, match=word):
-            System(pconfig.VDOConfig(), **kwargs)
+        # the default `mode` is "reference": the host Tracker
+        sysm = System(pconfig.VDOConfig(), device="cpu", **kwargs)
+        assert isinstance(sysm.tracker, Tracker)
+        assert sysm.tracker.device.type == "cpu"
 
     @pytest.mark.parametrize("change,word", [
         (dict(camera=dict(k1=-0.28)), "distortion"),
@@ -230,17 +230,15 @@ class TestRefusals:
         cfg = pconfig.VDOConfig()
         cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
                              for k, v in change.items()})
-        if word in self.PORTED:
-            # the packed wire and the chunked drive are ported: the config
-            # is taken, and the tracker is built for it
-            sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
-                          mode="fused", device="cpu")
-            assert sysm.tracker.chunk == cfg.tracking.fused_chunk
-            assert sysm.cfg.tracking.flow_down == cfg.tracking.flow_down
-            return
-        with pytest.raises(NotImplementedError, match=word):
-            System(cfg, enable_local_ba=False, enable_global_ba=False,
-                   mode="fused")
+        # every option is taken, and the trackers of both modes are built
+        # for it
+        sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                      mode="fused", device="cpu")
+        assert sysm.tracker.chunk == cfg.tracking.fused_chunk
+        assert sysm.cfg.tracking.flow_down == cfg.tracking.flow_down
+        ref = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                     device="cpu")
+        assert ref.cfg == cfg and ref.tracker.frame_id == 0
 
 
 def test_entry_points_default_to_the_card():
@@ -290,6 +288,36 @@ assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("NO_JAX_OK")
 """
+
+
+IMPORT_ALL = r"""
+import importlib
+import pkgutil
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import vdo_slam_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vdo_slam_tpu_torch.__path__,
+                                               "vdo_slam_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert {"vdo_slam_tpu_torch.run", "vdo_slam_tpu_torch.utils.checkpoint",
+        "vdo_slam_tpu_torch.utils.profiling",
+        "vdo_slam_tpu_torch.pipeline.tracking",
+        "vdo_slam_tpu_torch.solvers.reproj_lm",
+        "vdo_slam_tpu_torch.ops.undistort"} <= set(names)
+assert not any(m == "jax" or m.startswith(("jax.", "flax", "vdo_slam_tpu."))
+               or m == "vdo_slam_tpu"
+               for m in sys.modules if sys.modules[m] is not None)
+print("IMPORTED", len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "IMPORTED" in out.stdout
 
 
 def test_port_runs_without_jax():

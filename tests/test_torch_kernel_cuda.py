@@ -2,8 +2,11 @@
 plain version (one level and a whole pyramid per launch, and the pyramids
 of S streams' decoded frames in one launch, held stream by stream), the
 wire decode on the card against the CPU's, the packed fused step and the
-S-stream system on the card against the same on the CPU, and both BA
-solvers on the card against the same solve on the CPU.  Every test here skips without a
+S-stream system on the card against the same on the CPU, the host Tracker
+(System mode "reference") on the card against the same on the CPU with
+one FAST launch per frame (none with grid-sampled keypoints) and its
+one-copy host reads, and both BA solvers on the card against the same
+solve on the CPU.  Every test here skips without a
 CUDA device.  This file imports no JAX, so it runs on a machine without
 it:
 
@@ -171,6 +174,13 @@ class NumpyDraws:
         n = n_valid[:, None, None]
         return torch.minimum((u * n).long(), n - 1)
 
+    def sample_offsets(self, n_div, per_cell):
+        return self._u((2, n_div, n_div, per_cell))
+
+    def depth_noise(self, n):
+        return torch.from_numpy(self.rng.standard_normal(
+            n, dtype=np.float32)).to(self.device)
+
 
 def _small_cfg():
     cfg = VDOConfig()
@@ -300,6 +310,66 @@ def test_multistream_system_on_card_matches_cpu_and_launches_once():
                           E[1, 0] - E[0, 1]])
             dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
             assert np.linalg.norm(E[:3, 3]) < 1e-3 and dr < 0.01
+
+
+def _reference_run(cfg, ds, dev):
+    """System mode "reference" on `dev`, each frame's draws from a numpy
+    generator seeded with the frame index (the same on either device);
+    returns (reports, FAST launches)."""
+    from vdo_slam_tpu_torch.pipeline import System
+
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                  device=dev)
+    tr = sysm.tracker
+    tr._frame_draws = lambda: NumpyDraws(tr.frame_id, dev)
+    before = KERNEL.launches
+    reps = sysm.run_sequence(ds)
+    return reps, KERNEL.launches - before
+
+
+@pytest.mark.parametrize("option", ["fast", "sample_feature"])
+def test_reference_tracker_on_card_matches_cpu(option):
+    """The host Tracker on the card against the CPU's, the same frames and
+    draws: one FAST launch per frame, none with grid-sampled keypoints."""
+    scene = make_scene(num_frames=6, width=320, height=240, num_objects=2,
+                       seed=3)
+    cfg = _small_cfg()
+    if option == "sample_feature":
+        cfg = cfg.replace(frontend=dataclasses.replace(
+            cfg.frontend, use_sample_feature=True, n_sample_points=1500))
+    ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
+    (cpu, n_cpu), (card, n_card) = (_reference_run(cfg, ds, d)
+                                    for d in ("cpu", "cuda"))
+    assert n_cpu == 0
+    assert n_card == (0 if option == "sample_feature" else len(ds))
+    for rc, rg in zip(cpu, card):
+        assert ([(o["model_label"], o["sem_label"], o["status"])
+                 for o in rc["objects"]]
+                == [(o["model_label"], o["sem_label"], o["status"])
+                    for o in rg["objects"]])
+        Tc = np.asarray(rc["T_cw"], np.float64)
+        Tg = np.asarray(rg["T_cw"], np.float64)
+        E = np.linalg.inv(Tc) @ Tg
+        s = np.array([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0], E[1, 0] - E[0, 1]])
+        dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
+        assert np.linalg.norm(Tg[:3, 3] - Tc[:3, 3]) < 1e-3 and dr < 0.01
+    assert sum(o["status"] for r in card for o in r["objects"]) >= 6
+
+
+def test_tracker_fetch_is_one_exact_copy():
+    from vdo_slam_tpu_torch.pipeline import Tracker
+
+    tr = Tracker(_small_cfg(), device="cuda")
+    xs = [torch.arange(7, dtype=torch.int32, device="cuda") - 3,
+          torch.rand(5, 3, device="cuda"),
+          torch.rand(4, device="cuda") > 0.5,
+          torch.tensor(2**40 + 3, device="cuda"),
+          torch.eye(4, device="cuda")[1:]]
+    got = tr._fetch(*xs)
+    for x, g in zip(xs, got):
+        ref = x.cpu().numpy()
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        np.testing.assert_array_equal(g, ref)
 
 
 @pytest.fixture(scope="module")

@@ -72,11 +72,22 @@ class JaxDraws:
     """The port's FrameDraws, drawing what the JAX step draws from `key`."""
 
     def __init__(self, key, initialized: bool, n_slots: int):
-        if initialized:
-            k1, self.k2, self.k3, self.k4 = jax.random.split(key, 4)
-        else:
-            k1 = key
-        self.k_obj = jax.random.split(k1)[1]
+        keys = (jax.random.split(key, 4) if initialized
+                else (key, None, None, None))
+        self._set(*keys, n_slots)
+
+    @classmethod
+    def from_keys(cls, n_slots: int, k1=None, k2=None, k3=None, k4=None):
+        """The draws of stages handed these keys, as the host Tracker hands
+        them: prepare k1, camera k2, objects k3, renewal k4."""
+        self = cls.__new__(cls)
+        self._set(k1, k2, k3, k4, n_slots)
+        return self
+
+    def _set(self, k1, k2, k3, k4, n_slots):
+        self.k1, self.k2, self.k3, self.k4 = k1, k2, k3, k4
+        if k1 is not None:
+            self.k_det, self.k_obj = jax.random.split(k1)
         self.n_slots = n_slots
 
     @staticmethod
@@ -99,6 +110,18 @@ class JaxDraws:
 
     def renew_priority(self, n):
         return self._t(jax.random.uniform(self.k4, (n,)))
+
+    def sample_offsets(self, n_div, per_cell):
+        """fast.py:211-215: x from the first half of k_det, y the second."""
+        kx, ky = jax.random.split(self.k_det)
+        return self._t(np.stack([
+            np.asarray(jax.random.uniform(k, (n_div, n_div, per_cell)))
+            for k in (kx, ky)]))
+
+    def depth_noise(self, n):
+        """stages.py:221 with reproj_lm.py:45."""
+        return self._t(jax.random.normal(jax.random.fold_in(self.k2, 1),
+                                         (n,)))
 
 
 def to_port_host(cfg, jstate_np, jmetrics_np):
@@ -400,22 +423,47 @@ def test_draws_depend_on_seed_and_frame_only():
         draws_mod.UniformDraws(ua).object_priority(3)
 
 
-def test_check_slice_takes_wire_flags_and_chunks():
-    from vdo_slam_tpu_torch.pipeline.stages import check_slice
+OPTIONS = {
+    "wire_and_chunks": dict(tracking=dict(fused_chunk=4, **WIRE)),
+    "tpu_fast": None,
+    "distortion": dict(camera=dict(k1=-0.28, k2=0.07)),
+    "sample_feature": dict(frontend=dict(use_sample_feature=True,
+                                         n_sample_points=300)),
+    "non_joint": dict(tracking=dict(joint_flow=False)),
+    "non_joint_depth_noise": dict(tracking=dict(joint_flow=False,
+                                                depth_noise=True)),
+}
 
-    _, cfg = tiny_pair(fused_chunk=4, **WIRE)
-    check_slice(cfg)
-    check_slice(pconfig.tpu_fast(pconfig.VDOConfig()))
-    System(cfg, enable_local_ba=True, enable_global_ba=True, mode="fused",
-           device="cpu")
-    bad = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
-                                                   joint_flow=False))
-    with pytest.raises(NotImplementedError):
-        check_slice(bad)
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_every_option_builds_both_modes_and_streams(tiny_ds, option):
+    """Every option the JAX stages take builds a System in both modes and a
+    MultiStreamSystem on the CPU, and each tracks two frames."""
+    from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+
+    _, cfg = tiny_pair()
+    change = OPTIONS[option]
+    if change is None:
+        cfg = pconfig.tpu_fast(cfg)
+    else:
+        cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                             for k, v in change.items()})
+    for mode in ("reference", "fused"):
+        sysm = System(cfg, enable_local_ba=True, enable_global_ba=False,
+                      mode=mode, device="cpu")
+        reps = sysm.run_sequence(tiny_ds, max_frames=2)
+        assert [r["frame_id"] for r in reps] == [0, 1]
+        assert np.isfinite(reps[1]["T_cw"]).all()
+    msys = MultiStreamSystem(cfg, n_streams=2, enable_local_ba=False,
+                             device="cpu")
+    reps = msys.run([tiny_ds, tiny_ds], max_frames=2)
+    assert [len(r) for r in reps] == [2, 2]
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    from vdo_slam_tpu_torch import run
     from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+    from vdo_slam_tpu_torch.pipeline import Tracker
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -423,6 +471,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError):
         FusedTracker(cfg)
     with pytest.raises(RuntimeError):
+        Tracker(cfg)
+    with pytest.raises(RuntimeError):
         System(cfg, mode="fused")
     with pytest.raises(RuntimeError):
+        System(cfg)                  # mode "reference", the default
+    with pytest.raises(RuntimeError):
         MultiStreamSystem(cfg, n_streams=2)
+    with pytest.raises(RuntimeError):
+        run.main(["--synthetic", "--frames", "2", "--quiet"])

@@ -1,10 +1,12 @@
 """vdo_slam_tpu_torch — the PyTorch/CUDA port of vdo_slam_tpu.
 
-The fused per-frame tracking path of the JAX package (System mode="fused")
-with its window and full-batch BA passes (backend/) on PyTorch, with the
-FAST-9/16 corner score as a CUDA kernel written for Hopper
-(ops/fast_cuda.py, csrc/fast_score.cu).  The JAX package beside it is the
-reference every module is tested against.
+Both tracking modes of the JAX package's System, the host-orchestrated
+Tracker (mode "reference", the default) and the fused per-frame step
+(mode "fused", also batched over S streams), with the window and
+full-batch BA passes (backend/), the run CLI (run.py) and every option of
+the stages, on PyTorch, with the FAST-9/16 corner score as a CUDA kernel
+written for Hopper (ops/fast_cuda.py, csrc/fast_score.cu).  The JAX
+package beside it is the reference every module is tested against.
 """
 
 import torch as _torch

@@ -191,6 +191,30 @@ def select_pyramid(scores, n_features: int = 2500,
             "octave": torch.cat(os_), "valid": torch.cat(vs)}
 
 
+def sample_cells(n: int, n_div: int) -> int:
+    """Keypoints drawn per grid cell by grid_sample_keypoints."""
+    return -(-n // (n_div * n_div))
+
+
+def grid_sample_keypoints(offsets: Tensor, height: int, width: int,
+                          n: int = 3000, n_div: int = 20):
+    """Uniform-in-grid random keypoints — the UseSampleFeature path
+    (Frame::SampleKeyPoints, Frame.cc:672-740; fast.py:203-220).
+    `offsets` (2, n_div, n_div, per_cell): the x and y uniform [0, 1)
+    draws, x on the first grid axis.  Returns ((n, 2) xy float32, valid)."""
+    x_step = width // n_div
+    y_step = height // n_div
+    dev = offsets.device
+    gx = torch.arange(n_div, device=dev) * x_step
+    gy = torch.arange(n_div, device=dev) * y_step
+    xs = (gx[:, None, None] + offsets[0] * x_step).reshape(-1)
+    ys = (gy[None, :, None] + offsets[1] * y_step).reshape(-1)
+    xy = torch.stack([xs, ys], dim=-1)[:n].to(torch.float32)
+    valid = ((xy[:, 0] > 0) & (xy[:, 0] < width) & (xy[:, 1] > 0)
+             & (xy[:, 1] < height))
+    return xy, valid
+
+
 def detect_pyramid(gray: Tensor, n_features: int = 2500, n_levels: int = 8,
                    scale_factor: float = 1.2, ini_th: float = 20.0,
                    min_th: float = 7.0, cell: int = 30):

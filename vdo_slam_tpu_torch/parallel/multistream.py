@@ -29,8 +29,8 @@ from ..config import VDOConfig
 from ..ops import frontend, select
 from ..pipeline import stages
 from ..pipeline.draws import FrameDraws, UniformDraws
-from ..pipeline.stages import check_slice
-from ..pipeline.state import DynamicBank, FrameState, StaticBank
+from ..pipeline.state import (DynamicBank, FrameState, StaticBank, field,
+                              frame_state_from_numpy, to_tensor)
 
 Tensor = torch.Tensor
 
@@ -99,27 +99,11 @@ def state_from_numpy(tree, device="cuda"):
     stacked state (a leading S on every leaf) gives a StreamState with that
     leading S and `initialized` as a list of S bools; a single state gives
     one bool."""
-    def get(obj, name):
-        leaf = obj[name] if isinstance(obj, dict) else getattr(obj, name)
-        if isinstance(leaf, dict) or dataclasses.is_dataclass(leaf):
-            return leaf
-        return torch.from_numpy(np.array(leaf)).to(device)  # writable copy
-
-    def conv(obj, cls):
-        return cls(**{f.name: get(obj, f.name)
-                      for f in dataclasses.fields(cls)})
-
-    fr = get(tree, "frame")
-    frame = FrameState(
-        static=conv(get(fr, "static"), StaticBank),
-        dynamic=conv(get(fr, "dynamic"), DynamicBank),
-        **{name: get(fr, name) for name in ("T_cw", "T_cw_gt", "velocity",
-                                            "seg", "flow_map", "depth_map")})
-    state = StreamState(frame=frame, **{
-        f.name: get(tree, f.name)
-        for f in dataclasses.fields(StreamState) if f.name != "frame"})
-    init = np.asarray(tree["initialized"] if isinstance(tree, dict)
-                      else tree.initialized)
+    state = StreamState(
+        frame=frame_state_from_numpy(field(tree, "frame"), device),
+        **{f.name: to_tensor(field(tree, f.name), device)
+           for f in dataclasses.fields(StreamState) if f.name != "frame"})
+    init = np.asarray(field(tree, "initialized"))
     return state, (bool(init) if init.ndim == 0 else [bool(x) for x in init])
 
 
@@ -150,13 +134,12 @@ def make_frame_step(cfg: VDOConfig, device="cuda", packed: bool = False):
 def _make_bodies(cfg: VDOConfig, device):
     """(init_body, track_body) of the step, each (state, dense inputs,
     draws) -> (state, metrics)."""
-    check_slice(cfg)
     tr = cfg.tracking
     Kobj = cfg.shapes.max_objects
     L_tab = cfg.shapes.max_sem_labels
-    prep_fn = stages.make_prepare(cfg)
-    mask_prop_fn = stages.make_mask_prop(cfg)
-    inherit_fn = stages.make_inherit(cfg)
+    prep_fn = stages.make_prepare(cfg, device)
+    mask_prop_fn = stages.make_mask_prop(cfg, device)
+    inherit_fn = stages.make_inherit(cfg, device)
     camera_fn = stages.make_camera_stage(cfg, device)
     sflow_fn = stages.make_scene_flow(cfg, device)
     objects_fn = stages.make_objects_stage(cfg, device)
@@ -289,13 +272,17 @@ def _make_batched_step(cfg: VDOConfig, device, packed: bool, finish):
     init_body, track_body = _make_bodies(cfg, device)
     unpack = stages.make_unpack(cfg)
     score = stages.make_score_pyramid(cfg)
+    detect = not cfg.frontend.use_sample_feature
 
     def step(states: StreamState, inputs: dict, uniforms: dict,
              initialized: bool):
         if packed:
             inputs = unpack(inputs)          # all streams in one pass
-        # the kernel call sits at batch level: one launch for all streams
-        inputs = dict(inputs, fast_scores=score(inputs["rgb"], batched=True))
+        if detect:
+            # the kernel call sits at batch level: one launch for all
+            # streams (grid-sampled keypoints need no score)
+            inputs = dict(inputs,
+                          fast_scores=score(inputs["rgb"], batched=True))
         body = track_body if initialized else init_body
 
         def one(leaves, inp, u):

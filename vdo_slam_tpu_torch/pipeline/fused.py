@@ -50,7 +50,8 @@ from ..io.packing import pack_frame, wire_kwargs
 from ..parallel.multistream import make_frame_step, make_stream_state
 from . import draws as draws_mod
 from .map_state import MapState
-from .tracking import _np_inv, obj_pose_parsing_kt, obj_pose_parsing_ox
+from .tracking import (_np_inv, obj_pose_parsing_kt, obj_pose_parsing_ox,
+                       upload)
 
 # cap on per-frame GT-object semantic labels fed to the bObjStat gate
 _K_GT = 32
@@ -201,12 +202,7 @@ class FusedTracker:
                           **wire_kwargs(self.cfg.tracking))
 
     def _put(self, x, dtype) -> torch.Tensor:
-        """A host array on the device: through a pinned buffer and an
-        asynchronous copy on a CUDA device."""
-        t = torch.from_numpy(np.ascontiguousarray(x, dtype=dtype))
-        if self.device.type == "cuda":
-            t = t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return upload(x, dtype, self.device)
 
     def device_inputs(self, fd: FrameData) -> dict:
         """Stage a frame on the device: ONE packed int16 transfer plus its

@@ -4,12 +4,15 @@ vdo_slam_tpu/pipeline/stages.py.
 Each `make_*` builds a stage for one configuration and device.  The vmaps
 of the JAX package over object slots and RANSAC hypotheses are leading
 batch dimensions; the random draws come from a `FrameDraws` object
-(pipeline/draws.py).  Only what the fused path runs is here: the wire
-decode, the joint-flow camera and object solves, the compacted object
-solve, and a camera with zero distortion (the port's System raises on
-anything else).  Every stage also runs under `torch.func.vmap` over a
-leading stream dimension, except the FAST scoring (`make_score_pyramid`),
-which takes the streams as a batch: a kernel launch cannot be mapped.
+(pipeline/draws.py).  Every option of the JAX stages is here: camera
+distortion (the banks in pinhole space, the maps in raw space, `_warps`),
+grid-sampled keypoints (use_sample_feature), and the reprojection-only
+camera and object solves (joint_flow=False), which take the JAX package's
+uncompacted object route.  The stages serve the host Tracker
+(pipeline/tracking.py) and the fused step alike.  Every stage also runs
+under `torch.func.vmap` over a leading stream dimension, except the FAST
+scoring (`make_score_pyramid`), which takes the streams as a batch: a
+kernel launch cannot be mapped.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from ..geometry import metrics, se3
 from ..io.packing import unpack_frame, wire_kwargs
 from ..ops import fast, frontend, select
 from ..ops.image import gather_int, preprocess_depth, rgb_to_gray
-from ..solvers import FlowLMParams, flow_lm, ransac
+from ..ops import undistort
+from ..solvers import FlowLMParams, flow_lm, ransac, reproj_lm
 from .draws import FrameDraws
 from .state import DynamicBank, StaticBank
 
@@ -47,22 +51,25 @@ def _lm_params(cfg: VDOConfig, for_objects: bool) -> FlowLMParams:
     )
 
 
-def check_slice(cfg: VDOConfig) -> None:
-    """Raise NotImplementedError, naming the option, for a configuration
-    whose step the port does not have (it never runs something else)."""
-    c, tr = cfg.camera, cfg.tracking
-    if any((c.k1, c.k2, c.p1, c.p2, c.k3)):
-        raise NotImplementedError(
-            "camera distortion (k1, k2, p1, p2, k3 nonzero): undistortion "
-            "(ops/undistort.py, stages._warps) is not ported")
-    if cfg.frontend.use_sample_feature:
-        raise NotImplementedError(
-            "frontend.use_sample_feature: grid-sampled keypoints are not "
-            "ported")
-    if not tr.joint_flow:
-        raise NotImplementedError(
-            "tracking.joint_flow=False: the reprojection-only LM "
-            "(solvers/reproj_lm.py) is not ported")
+def _warps(cfg: VDOConfig, device):
+    """(to_pinhole, to_raw) pixel-coordinate warps, or None when the camera
+    has zero distortion (every shipped config; the reference's early-out at
+    Frame.cc:383-387).
+
+    With nonzero coefficients the feature banks live in PINHOLE
+    (undistorted) coordinates, where pi and unproject are exact (the
+    reference's mvKeysUn, Frame.cc:233, 381-410), while the depth, flow and
+    mask maps stay in RAW image space, so every map gather converts with
+    the exact forward model to_raw (stages.py:38-58).
+    """
+    c = cfg.camera
+    coeffs = (c.k1, c.k2, c.p1, c.p2, c.k3)
+    if not any(coeffs):
+        return None
+    K = _K(cfg, device)
+    dvec = torch.tensor(coeffs, dtype=torch.float32, device=device)
+    return (lambda uv: undistort.undistort_points(uv, K, dvec),
+            lambda uv: undistort.distort_points(uv, K, dvec))
 
 
 def obj_solver_cap(cfg: VDOConfig) -> int:
@@ -117,33 +124,55 @@ def make_score_pyramid(cfg: VDOConfig):
     return score
 
 
-def make_prepare(cfg: VDOConfig):
+def make_prepare(cfg: VDOConfig, device):
     B = cfg.shapes.max_static
     D = cfg.shapes.max_dynamic
     fe = cfg.frontend
     tr = cfg.tracking
     score_fn = make_score_pyramid(cfg)
+    warps = _warps(cfg, device)
+
+    def _to_pinhole(cand):
+        """A candidate bank detected in raw image space, in pinhole
+        coordinates (xy, corres and flow consistent; gathers done)."""
+        xy_un = warps[0](cand["xy"])
+        corres_un = warps[0](cand["corres"])
+        return dict(cand, xy=xy_un, corres=corres_un, flow=corres_un - xy_un)
 
     def prepare(rgb, depth_raw, flow, seg, draws: FrameDraws, scores=None):
         """`scores`: the frame's FAST score maps where the caller already
         has them (the S-stream step scores all streams in one launch
-        before it maps this body over them)."""
+        before it maps this body over them).  With use_sample_feature the
+        keypoints are grid samples and no FAST score is computed."""
         depth = preprocess_depth(depth_raw, tr.dataset, cfg.camera.bf,
                                  tr.depth_map_factor)
-        if scores is None:
-            scores = score_fn(rgb)
-        det = fast.select_pyramid(scores, n_features=fe.n_features,
-                                  scale_factor=fe.scale_factor,
-                                  cell=fe.fast_cell)
-        xy, v, score = det["xy"], det["valid"], det["score"]
+        H, W = depth.shape
+        if fe.use_sample_feature:
+            n_div = fe.sample_grid_div
+            xy, v = fast.grid_sample_keypoints(
+                draws.sample_offsets(
+                    n_div, fast.sample_cells(fe.n_sample_points, n_div)),
+                H, W, n=fe.n_sample_points, n_div=n_div)
+            score = torch.ones(xy.shape[0], dtype=torch.float32,
+                               device=xy.device)
+        else:
+            if scores is None:
+                scores = score_fn(rgb)
+            det = fast.select_pyramid(scores, n_features=fe.n_features,
+                                      scale_factor=fe.scale_factor,
+                                      cell=fe.fast_cell)
+            xy, v, score = det["xy"], det["valid"], det["score"]
         stat = frontend.static_candidates(xy, v, score, depth, flow, seg,
                                           tr.th_depth_bg, B)
-        H, W = depth.shape
         pri = draws.object_priority(
             frontend.object_grid_size(H, W, fe.obj_sample_step))
         obj = frontend.object_candidates(
             depth, flow, seg, tr.th_depth_obj, fe.obj_sample_step, D,
             tr.max_track_points_obj, pri)
+        if warps is not None:
+            stat = _to_pinhole(stat)
+            obj = _to_pinhole(obj)
+            xy = warps[0](xy)  # detections feed renewal's pinhole dedupe
         return {"depth": depth, "stat_cand": stat, "obj_cand": obj,
                 "det_xy": xy, "det_valid": v, "det_score": score}
 
@@ -154,11 +183,16 @@ def make_prepare(cfg: VDOConfig):
 # mask propagation (frame >= 1, before prepare)
 # --------------------------------------------------------------------------
 
-def make_mask_prop(cfg: VDOConfig):
+def make_mask_prop(cfg: VDOConfig, device):
+    warps = _warps(cfg, device)
+
     def mask_prop(seg_cur, seg_last, flow_last, dyn_last: DynamicBank,
                   label_table):
+        corres = dyn_last.corres
+        if warps is not None:
+            corres = warps[1](corres)  # the seg maps are in raw space
         return frontend.propagate_mask(
-            seg_cur, seg_last, flow_last, dyn_last.corres,
+            seg_cur, seg_last, flow_last, corres,
             dyn_last.sem_label, dyn_last.valid, label_table,
             min_points=cfg.tracking.mask_recover_min_points)
 
@@ -169,26 +203,31 @@ def make_mask_prop(cfg: VDOConfig):
 # inherit
 # --------------------------------------------------------------------------
 
-def make_inherit(cfg: VDOConfig):
+def make_inherit(cfg: VDOConfig, device):
     tr = cfg.tracking
+    warps = _warps(cfg, device)
 
     def inherit(stat_last: StaticBank, dyn_last: DynamicBank, depth, seg):
-        s = frontend.inherit_static(stat_last.corres, stat_last.valid, depth)
+        s_raw = warps[1](stat_last.corres) if warps is not None else None
+        d_raw = warps[1](dyn_last.corres) if warps is not None else None
+        s = frontend.inherit_static(stat_last.corres, stat_last.valid, depth,
+                                    corres_raw=s_raw)
         d = frontend.inherit_objects(dyn_last.corres, dyn_last.valid, depth,
-                                     seg, tr.th_depth_obj)
+                                     seg, tr.th_depth_obj, corres_raw=d_raw)
         return s, d
 
     return inherit
 
 
 # --------------------------------------------------------------------------
-# camera tracking (joint flow-pose branch)
+# camera tracking
 # --------------------------------------------------------------------------
 
 def make_camera_stage(cfg: VDOConfig, device):
     K = _K(cfg, device)
     p = _lm_params(cfg, for_objects=False)
     s = cfg.solver
+    tr = cfg.tracking
     n_samples = cfg.shapes.ransac_samples
 
     def camera(stat_last: StaticBank, cur_xy, cur_depth, T_cw_last, velocity,
@@ -206,10 +245,23 @@ def make_camera_stage(cfg: VDOConfig, device):
             thres=s.ransac_reproj_thres)
         if s.refit_init:
             T0 = ransac.refine_with_inliers(T0, X_w, X_tgt, init_inlier)
-        out = flow_lm.solve(T0, stat_last.xy, stat_last.depth, stat_last.flow,
-                            T_cw_last, init_inlier, K, p)
-        uv_cur = torch.where(out["inlier"][:, None],
-                             stat_last.xy + out["flow"], cur_xy)
+        if tr.joint_flow:
+            out = flow_lm.solve(T0, stat_last.xy, stat_last.depth,
+                                stat_last.flow, T_cw_last, init_inlier, K, p)
+            uv_cur = torch.where(out["inlier"][:, None],
+                                 stat_last.xy + out["flow"], cur_xy)
+        else:
+            # the non-joint path (PoseOptimizationNew), with the
+            # reference's synthetic depth-noise fault injection
+            noise = (draws.depth_noise(stat_last.depth.shape[-1])
+                     if tr.depth_noise else None)
+            out = dict(reproj_lm.solve_pose(
+                T0, cur_xy, stat_last.xy, stat_last.depth, T_cw_last,
+                init_inlier, K, reproj_lm.ReprojLMParams(iters=p.iters),
+                noise=noise, noise_scale=tr.depth_noise_scale))
+            out["repro_err"] = torch.sqrt(
+                torch.clamp(out["chi2"], min=0.0)).mean()
+            uv_cur = cur_xy
         # fp32 drift control on the composed pose chain
         T_cw = se3.orthonormalize(out["T"])
         t_rpe, r_rpe = metrics.camera_rpe(T_cw, T_cw_last, T_cw_gt_cur,
@@ -253,15 +305,19 @@ def make_scene_flow(cfg: VDOConfig, device):
 
 
 # --------------------------------------------------------------------------
-# object motion (the compacted per-slot solve, stages.py:299-364)
+# object motion
 # --------------------------------------------------------------------------
 
 def make_objects_stage(cfg: VDOConfig, device):
-    """Per-slot object motion on (K, M) banks of each slot's members.
+    """Per-slot object motion.
 
-    The JAX package takes this route whenever M < D; with M = D its
-    uncompacted route gives the same inliers and motions (the members keep
-    their index order either way), so the port has only this one.
+    With joint_flow, the compacted solve (stages.py:299-364) on (K, M)
+    banks of each slot's members.  The JAX package takes it whenever
+    M < D; with M = D its uncompacted route gives the same inliers and
+    motions (the members keep their index order either way), so the joint
+    path has only this one.  With joint_flow=False, the JAX package's
+    uncompacted route (stages.py:391-455) over the whole (K, D) bank with
+    the reprojection-only LM.
     """
     K = _K(cfg, device)
     p = _lm_params(cfg, for_objects=True)
@@ -269,6 +325,24 @@ def make_objects_stage(cfg: VDOConfig, device):
     n_samples = cfg.shapes.ransac_samples
     M = obj_solver_cap(cfg)
     thres = s.ransac_reproj_thres
+
+    def init(X_src, X_tgt, uv, valid, slot_has_mm, slot_H_prev, T_cw_cur,
+             draws):
+        """RANSAC against the motion model per slot (stages.py:315-329,
+        391-406): (G0, init_inlier, n_init)."""
+        T_r, mask_r, n_r = ransac.ransac_rigid(
+            X_src, X_tgt, uv, valid, K,
+            lambda n: draws.object_picks(n_samples, n), thres=thres)
+        G_mm = T_cw_cur @ slot_H_prev   # MotionModel = Tcw * vObjMod (1786)
+        mask_mm, n_mm = ransac.reprojection_inliers(G_mm, X_src, uv, valid, K,
+                                                    thres)
+        use_mm = slot_has_mm & (n_mm >= n_r)
+        G0 = torch.where(use_mm[:, None, None], G_mm, T_r)
+        init_in = torch.where(use_mm[:, None], mask_mm, mask_r)
+        n_init = torch.where(use_mm, n_mm, n_r)
+        if s.refit_init:
+            G0 = ransac.refine_with_inliers(G0, X_src, X_tgt, init_in)
+        return G0, init_in, n_init
 
     def objects(dyn_last: DynamicBank, cur_xy, cur_depth, cur_sem,
                 slot_sem, slot_active, slot_has_mm, slot_H_prev,
@@ -280,24 +354,18 @@ def make_objects_stage(cfg: VDOConfig, device):
                    & (cur_depth > 0))
         members = ((cur_sem[None, :] == slot_sem[:, None]) & feat_ok[None, :]
                    & slot_active[:, None])                         # (Kobj, D)
+        if not cfg.tracking.joint_flow:
+            return objects_full(dyn_last, cur_xy, members, X_w, X_tgt,
+                                slot_has_mm, slot_H_prev, T_cw_last,
+                                T_cw_cur, draws)
         idx, okm = select.masked_top_k(members.to(torch.float32), members, M)
         uv_l = dyn_last.xy[idx]                                     # (Kobj, M, 2)
         uv_c = cur_xy[idx]
         Xw_s = X_w[idx]
         Xt_s = X_tgt[idx]
 
-        T_r, mask_r, n_r = ransac.ransac_rigid(
-            Xw_s, Xt_s, uv_c, okm, K,
-            lambda n: draws.object_picks(n_samples, n), thres=thres)
-        G_mm = T_cw_cur @ slot_H_prev   # MotionModel = Tcw * vObjMod (1786)
-        mask_mm, n_mm = ransac.reprojection_inliers(G_mm, Xw_s, uv_c, okm, K,
-                                                    thres)
-        use_mm = slot_has_mm & (n_mm >= n_r)
-        G0 = torch.where(use_mm[:, None, None], G_mm, T_r)
-        init_in = torch.where(use_mm[:, None], mask_mm, mask_r)
-        n_init = torch.where(use_mm, n_mm, n_r)
-        if s.refit_init:
-            G0 = ransac.refine_with_inliers(G0, Xw_s, Xt_s, init_in)
+        G0, init_in, n_init = init(Xw_s, Xt_s, uv_c, okm, slot_has_mm,
+                                   slot_H_prev, T_cw_cur, draws)
         out = flow_lm.solve(G0, uv_l, dyn_last.depth[idx], dyn_last.flow[idx],
                             T_cw_last, init_in, K, p)
         G = se3.orthonormalize(out["T"])
@@ -326,6 +394,44 @@ def make_objects_stage(cfg: VDOConfig, device):
             "uv_cur": uv_new[:Dn], "repro_err": out["repro_err"],
         }
 
+    def objects_full(dyn_last, cur_xy, members, X_w, X_tgt, slot_has_mm,
+                     slot_H_prev, T_cw_last, T_cw_cur, draws):
+        """The uncompacted non-joint route (stages.py:391-455): every slot
+        over the whole bank, PoseOptimizationObjMot without a robust kernel
+        and without flow refinement."""
+        Kn, Dn = members.shape
+
+        def each(x):  # the shared (D, ...) bank, one view per slot
+            return x.expand((Kn,) + tuple(x.shape))
+
+        G0, init_inlier, n_init = init(each(X_w), each(X_tgt), each(cur_xy),
+                                       members, slot_has_mm, slot_H_prev,
+                                       T_cw_cur, draws)
+        out = reproj_lm.solve_objects(
+            G0, cur_xy, dyn_last.xy, dyn_last.depth, T_cw_last, init_inlier,
+            K, reproj_lm.ReprojLMParams(iters=p.iters, robust=False))
+        G = se3.orthonormalize(out["T"])
+        H = se3.orthonormalize(se3.inv(T_cw_cur)[None] @ G)  # vObjMod (933)
+        mem_f = members.to(torch.float32)
+        cnt = torch.clamp(mem_f.sum(-1), min=1.0)
+        centroid = (mem_f @ X_w) / cnt[:, None]
+        # no flow refinement here: inliers keep their current positions,
+        # computed as the JAX package computes them
+        inl = out["inlier"]
+        flow_ref = (inl.to(torch.float32)[..., None]
+                    * (cur_xy - dyn_last.xy)).sum(dim=0)
+        uv_new = torch.where(inl.any(dim=0)[:, None], dyn_last.xy + flow_ref,
+                             cur_xy)
+        return {
+            "G": G, "H": H, "init_inlier": init_inlier,
+            "n_init": n_init, "inlier": inl, "n_inlier": out["n_inlier"],
+            "members": members, "centroid": centroid,
+            "speed": metrics.object_speed(H, centroid),
+            "uv_cur": uv_new,
+            "repro_err": torch.zeros(Kn, dtype=torch.float32,
+                                     device=cur_xy.device),
+        }
+
     return objects
 
 
@@ -338,15 +444,20 @@ def make_renew_stage(cfg: VDOConfig, device):
     tr = cfg.tracking
     B = cfg.shapes.max_static
     D = cfg.shapes.max_dynamic
+    warps = _warps(cfg, device)
 
     def _maps(xy, depth_map, flow_map, seg_map):
+        """Gathers at xy, warped to raw space where the banks are pinhole:
+        (depth, label, raw flow, corres in the banks' space, in bounds)."""
         H_img, W_img = depth_map.shape
-        d = gather_int(depth_map, xy)
-        m = gather_int(seg_map, xy)
-        f = gather_int(flow_map, xy)
-        corres = xy + f
-        inb = cam.in_bounds(xy, W_img, H_img) & cam.in_bounds(corres, W_img,
-                                                              H_img)
+        raw = xy if warps is None else warps[1](xy)
+        d = gather_int(depth_map, raw)
+        m = gather_int(seg_map, raw)
+        f = gather_int(flow_map, raw)
+        corres_raw = raw + f
+        corres = corres_raw if warps is None else warps[0](corres_raw)
+        inb = (cam.in_bounds(raw, W_img, H_img)
+               & cam.in_bounds(corres_raw, W_img, H_img))
         return d, m, f, corres, inb
 
     def renew_static(cur_xy, carry_ok, det_xy, det_valid, det_score,

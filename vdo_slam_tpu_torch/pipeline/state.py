@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -100,3 +101,28 @@ class FrameState:
             flow_map=_zeros((H, W, 2), torch.float32, device),
             depth_map=_zeros((H, W), torch.float32, device),
         )
+
+
+def field(obj, name: str):
+    """A field by name, of a dict or of any object with attributes."""
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def to_tensor(x, device) -> Tensor:
+    """A writable copy of an array on `device`."""
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def frame_state_from_numpy(tree, device) -> FrameState:
+    """A FrameState from its fields by name (dict keys or attributes), as a
+    state pulled to numpy holds them, the JAX package's included."""
+    def build(obj, cls):
+        return cls(**{f.name: (build(field(obj, f.name), _BANKS[f.name])
+                               if f.name in _BANKS
+                               else to_tensor(field(obj, f.name), device))
+                      for f in dataclasses.fields(cls)})
+
+    return build(tree, FrameState)
+
+
+_BANKS = {"static": StaticBank, "dynamic": DynamicBank}
