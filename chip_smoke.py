@@ -72,7 +72,27 @@ Phases, in order (any failure raises and exits nonzero):
   10. the CLI, `vdo_slam_tpu_torch.run.main` on its synthetic scene on the
      card (report keys and result files), and a checkpoint of the host
      Tracker after frame 6 resumed in a fresh one: every pose equal to the
-     uninterrupted run's within 1e-6.
+     uninterrupted run's within 1e-6;
+  11. the on-disk input path: the first 26 frames of the bench scene written
+     in the reference's layout (io/sequence_writer.py) beside a
+     reference-format settings file for bench_ba_config; (a) the native C++
+     reader (io/native_loader.py, built with g++ from csrc/loader.cpp)
+     against the Python reader on every frame, and each reader's host ms per
+     frame; (b) the CLI's positional form, run.main([settings, sequence]),
+     on the card in its default mode with both BA passes, gated against the
+     JAX CLI on the same files (JAX_REF_DISK); (c) System(mode="fused") over
+     the native reader (over the Python reader where the native one cannot
+     be built), gated the same way, with the reader's host ms per frame
+     while the card tracks; (d) the three drawings of
+     eval/visualize.py from (b)'s map.  One FAST launch per frame in (b)
+     and (c).  A part whose host library (PIL, matplotlib, g++ with libpng)
+     is missing prints "not run" and its reason and counts as not passed.
+Phase 6 ends with the fused path's stage-time probe
+(FusedTracker.calibrate_stage_times) on the wire path's tracker, where
+bench.py runs it: the seven spans, their sum against a whole step, each
+span's kernel launches and device time under torch.profiler, one FAST
+launch per repetition of mask_update and of the whole step, the tracker's
+state unchanged, and timing() non-zero for every span.
 Phases 4 and 5 use `bench_config` / `bench_ba_config` (no wire flags),
 phases 6 and 7 `wire_config` (tpu_fast's wire flags).  Each phase prints
 its seconds.
@@ -207,6 +227,38 @@ JAX_REF_HOST = {
                         "obj_r_rpe_deg": 0.006363972357767777,
                         "n_obj_estimates": 48},
 }
+# The JAX package's numbers for phase 11: the CLI (run.main([settings,
+# sequence]), default mode, both BA passes) and System(mode="fused") (BA
+# off) over the same written sequence, printed by `JAX_PLATFORMS=cpu python
+# tools/jax_reference_mode.py --runs disk_cli disk_fused` (JAX 0.9.0 on the
+# CPU).
+JAX_REF_DISK = {
+    "disk_cli": {
+        "initial": {
+            "cam_t_rpe": 0.0002621669039109316,
+            "cam_r_rpe_deg": 0.0002380790122050489,
+            "obj_t_rpe": 0.00048814878118719207,
+            "obj_r_rpe_deg": 0.0054588456835171105,
+            "n_obj_estimates": 48
+        },
+        "refined": {
+            "cam_t_rpe": 0.0002614623085740237,
+            "cam_r_rpe_deg": 0.00023588547731864023,
+            "obj_t_rpe": 0.0004063367244574086,
+            "obj_r_rpe_deg": 0.002151687126918735,
+            "n_obj_estimates": 48
+        },
+    },
+    "disk_fused": {
+        "initial": {
+            "cam_t_rpe": 0.0002615847821227058,
+            "cam_r_rpe_deg": 0.00022235377040079842,
+            "obj_t_rpe": 0.0004974820834225587,
+            "obj_r_rpe_deg": 0.006150584786304152,
+            "n_obj_estimates": 48
+        },
+    },
+}
 DIST = (-0.28, 0.07, 0.0, 0.0, 0.0)    # tests/test_pipeline_e2e.py:258
 N_OPT_FRAMES = 25
 RESUME_TOL = 1e-6
@@ -218,6 +270,10 @@ STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
 ABS_FLOOR = {"cam_t_rpe": 1e-3, "cam_r_rpe_deg": 0.01, "obj_t_rpe": 5e-3,
              "obj_r_rpe_deg": 0.05}
 N_FRAMES = 25
+N_DISK = 25                  # frames tracked from disk (26 written)
+PROBE_ROUNDS, PROBE_ITERS = 2, 8
+SCENE_FIELDS = ("rgb", "depth", "flow", "mask", "T_wc_gt", "obj_H_gt",
+                "obj_pose_gt")
 W, H = 1242, 375
 TH_INI, TH_MIN = 20 / 255.0, 7 / 255.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1348,6 +1404,335 @@ def cli_and_resume(device, card: str) -> dict:
     return {"resume_gap": gap}
 
 
+def host_libraries() -> dict:
+    """What the on-disk path needs of the host: PIL (the writer and the
+    Python reader), matplotlib (the drawings), g++ and libpng (the native
+    reader, built here).  Returns {part: None if present, else why not}."""
+    import importlib.util
+    import shutil
+
+    from vdo_slam_tpu_torch.io import native_loader
+
+    def module(name):
+        return (None if importlib.util.find_spec(name) is not None
+                else f"{name} is not installed")
+
+    found = {"PIL": module("PIL"), "matplotlib": module("matplotlib")}
+    if shutil.which("g++") is None:
+        found["native"] = "g++ is not installed"
+    elif native_loader.build_native_loader() is None:
+        found["native"] = ("the native loader did not build: "
+                           + native_loader.BUILD_LOG.strip()[-400:])
+    else:
+        found["native"] = None
+    print("host libraries: " + "; ".join(
+        f"{k} {'present' if v is None else 'MISSING (' + v + ')'}"
+        for k, v in found.items()))
+    return found
+
+
+def stage_probe(sysm, ds, device, card: str) -> dict:
+    """Phase 6c: the fused path's stage-time probe on the wire path's
+    tracker, after its timed run, on the frame after the warm frames (as
+    bench.py:390-420 runs it)."""
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.parallel.multistream import (PROBE_SPANS,
+                                                         STAGE_SPANS,
+                                                         _flatten,
+                                                         make_scan_probe)
+
+    tracker = sysm.tracker
+    fd = ds[WARM]
+    before = [t.clone() for t in _flatten(tracker.state)]
+    fid = tracker.frame_id
+    torch.cuda.synchronize()
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    times = tracker.calibrate_stage_times(fd, rounds=PROBE_ROUNDS,
+                                          n_iters=PROBE_ITERS)
+    secs = time.perf_counter() - t0
+    launches = KERNEL.launches
+    spans = {k: times[k] for k in PROBE_SPANS}
+    total = sum(spans.values())
+    print(f"stage probe ({secs:.2f} s, {PROBE_ROUNDS} rounds of "
+          f"{PROBE_ITERS}): " + ", ".join(f"{k} {v:.3f} ms"
+                                         for k, v in spans.items())
+          + f"; _frame_ms {times['_frame_ms']:.3f}, _rtt_ms "
+          f"{times['_rtt_ms']:.4f}; spans sum to {total:.3f} ms, "
+          f"{total / times['_frame_ms']:.3f} of a whole step [{card}]")
+    want = PROBE_ITERS * (1 + 2 * PROBE_ROUNDS)
+    if launches != want:
+        raise RuntimeError(f"stage probe: {launches} FAST launches, want "
+                           f"{want}: one per mask_update and per whole step")
+    if not (all(math.isfinite(v) for v in spans.values())
+            and times["_frame_ms"] > 0):
+        raise RuntimeError(f"stage probe: bad times {times}")
+    after = _flatten(tracker.state)
+    if tracker.frame_id != fid or not all(
+            torch.equal(a, b) for a, b in zip(after, before)):
+        raise RuntimeError("the stage probe changed the tracker's state")
+    rows = np.stack(sysm.map.timings)
+    timing = sysm.timing()
+    print(f"timing() after the probe: {json.dumps(timing)}")
+    if not (rows.shape[0] == sysm.map.num_frames
+            and (rows == tracker._stage_ms).all()
+            and all(timing[f"{k}_ms"] > 0 for k in STAGE_SPANS)):
+        raise RuntimeError("the probe's stage times are not archived with "
+                           "every frame")
+    # each span alone under the profiler: its kernels and device time
+    staged, draws = tracker.probe_inputs(fd)
+    probe = make_scan_probe(tracker.cfg, device)
+    per_span = {}
+    for name, span, ctx in probe.contexts(tracker.state, staged, draws):
+        _, n_k, dev_ms, wall_ms = _profiled(lambda: span(ctx),
+                                            f"span {name}")
+        per_span[name] = {"launches": n_k, "device_ms": dev_ms,
+                          "wall_ms": wall_ms}
+        print(f"span {name} under torch.profiler: {n_k} kernel launches, "
+              f"{dev_ms:.3f} ms on the device in {wall_ms:.3f} ms [{card}]")
+    print(f"spans' launches sum to "
+          f"{sum(r['launches'] for r in per_span.values())} per frame "
+          f"[{card}]")
+    return {"times": times, "launches": launches, "per_span": per_span}
+
+
+def settings_yaml(cfg) -> str:
+    """cfg's camera, front end and tracking as a reference-format settings
+    file: every key load_settings reads (tools/jax_reference_mode.py
+    writes its settings with this function too)."""
+    c, fe, tr = cfg.camera, cfg.frontend, cfg.tracking
+    keys = (
+        ("Camera.fx", c.fx), ("Camera.fy", c.fy), ("Camera.cx", c.cx),
+        ("Camera.cy", c.cy), ("Camera.k1", c.k1), ("Camera.k2", c.k2),
+        ("Camera.p1", c.p1), ("Camera.p2", c.p2), ("Camera.k3", c.k3),
+        ("Camera.width", c.width), ("Camera.height", c.height),
+        ("Camera.fps", c.fps), ("Camera.bf", c.bf),
+        ("Camera.RGB", int(c.rgb)), ("ChooseData", tr.dataset),
+        ("DepthMapFactor", tr.depth_map_factor),
+        ("ThDepthBG", tr.th_depth_bg), ("ThDepthOBJ", tr.th_depth_obj),
+        ("MaxTrackPointBG", tr.max_track_points_bg),
+        ("MaxTrackPointOBJ", tr.max_track_points_obj),
+        ("SFMgThres", tr.sf_mg_thres), ("SFDsThres", tr.sf_ds_thres),
+        ("WINDOW_SIZE", tr.window_size), ("OVERLAP_SIZE", tr.overlap_size),
+        ("UseSampleFeature", int(fe.use_sample_feature)),
+        ("ORBextractor.nFeatures", fe.n_features),
+        ("ORBextractor.scaleFactor", fe.scale_factor),
+        ("ORBextractor.nLevels", fe.n_levels),
+        ("ORBextractor.iniThFAST", fe.ini_th_fast),
+        ("ORBextractor.minThFAST", fe.min_th_fast))
+    return "%YAML:1.0\n" + "".join(f"{k}: {v!r}\n" for k, v in keys)
+
+
+class _TimedReads:
+    """A dataset whose reads are timed on the host clock."""
+
+    def __init__(self, base):
+        self.base, self.secs, self.n = base, 0.0, 0
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i):
+        t0 = time.perf_counter()
+        fd = self.base[i]
+        self.secs += time.perf_counter() - t0
+        self.n += 1
+        return fd
+
+
+def disk_path(scene, device, card: str, libs: dict) -> dict:
+    """Phase 11: a sequence written to disk, read by both readers, and
+    driven through the CLI and through System over the native reader."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import vdo_slam_tpu_torch.pipeline as pipeline
+    from vdo_slam_tpu_torch import run as cli
+    from vdo_slam_tpu_torch.config import load_settings
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+
+    out = {"cli_launches": None, "fused_launches": None, "not_run": []}
+    if libs["PIL"]:
+        print(f"disk path: not run: {libs['PIL']} (the writer and the "
+              f"Python reader need it)")
+        out["not_run"].append("disk path")
+        return out
+    from vdo_slam_tpu_torch.io.dataset import SequenceDataset
+    from vdo_slam_tpu_torch.io.sequence_writer import write_reference_sequence
+
+    cfg = bench_ba_config()
+    tr = cfg.tracking
+    z = scene.depth[:N_DISK + 1]
+    raw_max = tr.depth_map_factor * cfg.camera.bf / float(z[z > 0].min())
+    print(f"disk path: DepthMapFactor * bf / z is at most {raw_max:.1f} "
+          f"(uint16 holds 65535)")
+    if raw_max > 65535:
+        raise RuntimeError("the scene's depth does not fit the uint16 PNG")
+    with tempfile.TemporaryDirectory() as tmp:
+        first = dataclasses.replace(scene, **{
+            f: getattr(scene, f)[:N_DISK + 1] for f in SCENE_FIELDS})
+        t0 = time.perf_counter()
+        seq = write_reference_sequence(first, Path(tmp) / "seq",
+                                       depth_map_factor=tr.depth_map_factor,
+                                       bf=cfg.camera.bf)
+        print(f"disk path: {N_DISK + 1} frames written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        yaml = Path(tmp) / "settings.yaml"
+        yaml.write_text(settings_yaml(cfg))
+
+        # (a) the readers
+        py = SequenceDataset(seq)
+        py_frames, t0 = [], time.perf_counter()
+        for i in range(N_DISK):
+            py_frames.append(py[i])
+        py_ms = (time.perf_counter() - t0) / N_DISK * 1e3
+        print(f"(a) Python reader: {py_ms:.3f} ms per frame (host clock, "
+              f"{N_DISK} frames)")
+        if libs["native"]:
+            print(f"(a) native reader: not run: {libs['native']}")
+            out["not_run"].append("native reader")
+        else:
+            from vdo_slam_tpu_torch.io.native_loader import \
+                NativeSequenceDataset
+
+            nat = NativeSequenceDataset(seq)
+            try:
+                t0 = time.perf_counter()
+                nat_frames = [nat[i] for i in range(N_DISK)]
+                nat_ms = (time.perf_counter() - t0) / N_DISK * 1e3
+            finally:
+                nat.close()
+            rgb_err = 0.0
+            for a, b in zip(nat_frames, py_frames):
+                rgb_err = max(rgb_err, float(np.abs(a.rgb - b.rgb).max()))
+                if not (rgb_err <= 1e-5
+                        and np.array_equal(a.depth_raw, b.depth_raw)
+                        and np.array_equal(a.flow, b.flow)
+                        and np.array_equal(a.mask, b.mask)):
+                    raise RuntimeError("the native reader differs from the "
+                                       "Python reader")
+            print(f"(a) native reader: {nat_ms:.3f} ms per frame (host "
+                  f"clock, in order, prefetching); equal to the Python "
+                  f"reader on all {N_DISK} frames (rgb within {rgb_err:.2e}, "
+                  f"depth, flow and mask exact)")
+            out["native_ms"] = nat_ms
+        out["python_ms"] = py_ms
+        del py_frames
+
+        # (b) the CLI's positional form, default mode, both BA passes
+        made = []
+
+        class Recording(pipeline.System):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        buf = io.StringIO()
+        pipeline.System = Recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([str(yaml), str(seq), "--out",
+                               f"{tmp}/out", "--quiet"])
+        finally:
+            pipeline.System = Recording.__base__
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = KERNEL.launches
+        peak = torch.cuda.max_memory_allocated()
+        rep = json.loads(buf.getvalue())
+        print(f"(b) CLI run.main([settings, sequence]) on the card: exit "
+              f"{rc}, {rep['frames']} frames in {secs:.3f} s (host clock, "
+              f"reading, tracking, window BA, full BA, result files): "
+              f"{rep['frames'] / secs:.3f} fps; {launches} FAST launches; "
+              f"peak device memory {peak / 2**20:.1f} MiB [{card}]")
+        if rc != 0 or rep["frames"] != N_DISK or launches != N_DISK:
+            raise RuntimeError(f"CLI from disk: exit {rc}, {rep['frames']} "
+                               f"frames, {launches} FAST launches")
+        gate(rep["metrics_initial"], JAX_REF_DISK["disk_cli"]["initial"],
+             " (CLI from disk, before full BA)")
+        gate(rep["metrics_refined"], JAX_REF_DISK["disk_cli"]["refined"],
+             " (CLI from disk, refined)")
+        out.update(cli_launches=launches, cli_s=secs, cli_peak=peak)
+
+        # (c) System(mode="fused") over the native reader; without it,
+        # over the Python reader, so that the fused path from disk is
+        # still gated (the native part stays "not run")
+        if libs["native"]:
+            print(f"(c) System over the native reader: not run: "
+                  f"{libs['native']}; mode fused runs over the Python "
+                  f"reader instead")
+            out["not_run"].append("mode fused over the native reader")
+            reader, what = _TimedReads(SequenceDataset(seq)), "Python"
+        else:
+            from vdo_slam_tpu_torch.io.native_loader import \
+                NativeSequenceDataset
+
+            reader = _TimedReads(NativeSequenceDataset(seq))
+            what = "native"
+        sysm = pipeline.System(load_settings(yaml), enable_local_ba=False,
+                               enable_global_ba=False, mode="fused",
+                               device=device)
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        try:
+            reps = sysm.run_sequence(reader)
+        finally:
+            if what == "native":
+                reader.base.close()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = KERNEL.launches
+        read_ms = reader.secs / reader.n * 1e3
+        print(f"(c) System(mode='fused') over the {what} reader: "
+              f"{len(reps)} frames in {secs:.3f} s, {launches} FAST "
+              f"launches; the reader took {read_ms:.3f} ms per frame on "
+              f"its thread while the card tracked [{card}]")
+        if len(reps) != N_DISK or launches != N_DISK:
+            raise RuntimeError(f"fused from disk: {len(reps)} frames, "
+                               f"{launches} FAST launches")
+        gate(sysm.metrics(), JAX_REF_DISK["disk_fused"]["initial"],
+             f" (mode fused over the {what} reader)")
+        out.update(fused_launches=launches, fused_reader=what,
+                   read_ms_tracking=read_ms)
+
+        # (d) the drawings of (b)'s map
+        if libs["matplotlib"]:
+            print(f"(d) drawings: not run: {libs['matplotlib']}")
+            out["not_run"].append("drawings")
+        else:
+            from vdo_slam_tpu_torch.eval.visualize import (
+                draw_frame, draw_scene_flow_birdeye, draw_trajectory)
+
+            m = made[0].map
+            f = N_DISK // 2
+            P, Pl = m.dyn_3d[f], m.dyn_3d[f - 1]
+            a = m.dyn_assoc[f - 1]
+            ok = m.dyn_valid[f] & (a >= 0)
+            flow3d = P - Pl[np.clip(a, 0, len(Pl) - 1)]
+            paths = [
+                draw_frame(SequenceDataset(seq)[f].rgb, m.stat_xy[f],
+                           m.stat_valid[f], m.dyn_xy[f],
+                           m.dyn_obj_label[f], m.dyn_valid[f],
+                           f"{tmp}/frame.png"),
+                draw_trajectory(m, f"{tmp}/trajectory.png"),
+                draw_scene_flow_birdeye(P, flow3d, ok, f"{tmp}/birdeye.png",
+                                        x_range=(-30.0, 30.0),
+                                        z_range=(0.0, 60.0))]
+            sizes = [Path(p).stat().st_size for p in paths]
+            print(f"(d) drawings of (b)'s map: {dict(zip(paths, sizes))} "
+                  f"bytes")
+            if min(sizes) <= 5000:
+                raise RuntimeError(f"a drawing is {min(sizes)} bytes, want "
+                                   f"> 5000")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1379,6 +1764,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
 
+    libs = host_libraries()
     t0 = time.perf_counter()
     scene = bench_scene()
     print(f"scene: {scene.rgb.shape} made in {time.perf_counter() - t0:.1f} s")
@@ -1412,7 +1798,8 @@ def main() -> int:
               f"tpu_fast wire {json.dumps(wire['metrics'][key])}")
     wire_costs(pds, dense_ds, {"wire": cfg_wire, "dense": bench_ba_config()},
                device, card)
-    phase_done("6 (wire path)")
+    probe = stage_probe(wire["system"], pds, device, card)
+    phase_done("6 (wire path, stage probe)")
     streams = stream_path(pds, wire_config(fused_chunk=1), device, card)
     phase_done("7 (S-stream path)")
     ref = reference_path(scene, device, card)
@@ -1421,6 +1808,11 @@ def main() -> int:
     phase_done("9 (options)")
     cli_and_resume(device, card)
     phase_done("10 (CLI and resume)")
+    disk = disk_path(scene, device, card, libs)
+    phase_done("11 (on-disk input path)")
+    if disk["not_run"]:
+        print(f"NOT RUN (a host library is missing; not passed): "
+              f"{', '.join(disk['not_run'])}")
 
     print(json.dumps({"kernels": [{
         "name": "fast_score_pyramid",
@@ -1434,6 +1826,9 @@ def main() -> int:
         "launches_multistream_path": streams["launches"],
         "launches_reference_path": ref["launches"],
         "launches_omd_path": opts["omd"][1],
+        "launches_disk_path": disk["cli_launches"],
+        "launches_disk_fused_path": disk["fused_launches"],
+        "launches_probe": probe["launches"],
         "streams": N_STREAMS,
         "max_abs_err": max_err,
         "max_abs_err_batched": err_batched,

@@ -148,3 +148,54 @@ class TestMetricsParity:
         H = se3.from_Rt(torch.eye(3), torch.tensor([1.0, 0.0, 0.0]))
         close(metrics.object_speed(H, torch.tensor([5.0, 0.0, 20.0])), 36.0,
               rtol=0, atol=1e-4)
+
+
+class TestPublicHelpers:
+    """intrinsics, project_from_world, se3.identity and the sequence
+    metrics (camera.py:20, 54; se3.py:165; metrics.py:62-103)."""
+
+    def test_intrinsics_and_project_from_world(self):
+        K = camera.intrinsics(721.5377, 721.5377, 609.5593, 172.854)
+        close(K, jcam.intrinsics(721.5377, 721.5377, 609.5593, 172.854),
+              rtol=0, atol=0)
+        assert K.dtype == torch.float32
+        rng = np.random.default_rng(14)
+        X = np.stack([rng.uniform(-5, 5, 40), rng.uniform(-2, 2, 40),
+                      rng.uniform(4, 40, 40)], -1).astype(np.float32)
+        T = random_poses(1, 15)[0]
+        close(camera.project_from_world(_t(X), K, _t(T)),
+              jcam.project_from_world(jnp.asarray(X), jnp.asarray(K.numpy()),
+                                      jnp.asarray(T)), atol=1e-3)
+
+    def test_identity(self):
+        for shape in ((), (3,), (2, 5)):
+            close(se3.identity(shape), jse3.identity(shape), rtol=0, atol=0)
+            assert se3.identity(shape).shape == tuple(shape) + (4, 4)
+
+    def test_sequence_metrics(self):
+        T_wc = random_poses(6, 16)
+        T_gt = random_poses(6, 17)
+        for p, r in zip(metrics.camera_rpe_from_world_poses(_t(T_wc),
+                                                            _t(T_gt)),
+                        jmet.camera_rpe_from_world_poses(jnp.asarray(T_wc),
+                                                         jnp.asarray(T_gt))):
+            assert p.shape == (5,)
+            close(p, r, atol=1e-5)
+        H, Hg, L = (random_poses(4, seed) for seed in (18, 19, 20))
+        for p, r in zip(metrics.object_rpe_body(_t(H), _t(Hg), _t(L)),
+                        jmet.object_rpe_body(jnp.asarray(H), jnp.asarray(Hg),
+                                             jnp.asarray(L))):
+            close(p, r, atol=1e-4)
+
+    @pytest.mark.parametrize("rms", [False, True])
+    def test_average(self, rms):
+        rng = np.random.default_rng(21)
+        v = rng.uniform(0, 2, 50).astype(np.float32)
+        ok = rng.random(50) > 0.3
+        close(metrics.average(_t(v), torch.from_numpy(ok), rms=rms),
+              jmet.average(jnp.asarray(v), jnp.asarray(ok), rms=rms))
+        close(metrics.average(_t(v), rms=rms),
+              jmet.average(jnp.asarray(v), rms=rms))
+        none = np.zeros(50, bool)
+        close(metrics.average(_t(v), torch.from_numpy(none), rms=rms),
+              jmet.average(jnp.asarray(v), jnp.asarray(none), rms=rms))

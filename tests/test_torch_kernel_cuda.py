@@ -5,8 +5,9 @@ wire decode on the card against the CPU's, the packed fused step and the
 S-stream system on the card against the same on the CPU, the host Tracker
 (System mode "reference") on the card against the same on the CPU with
 one FAST launch per frame (none with grid-sampled keypoints) and its
-one-copy host reads, and both BA solvers on the card against the same
-solve on the CPU.  Every test here skips without a
+one-copy host reads, one frame of a barrel-distorted bench scene stepped
+from one state on the card and on the CPU, and both BA solvers on the
+card against the same solve on the CPU.  Every test here skips without a
 CUDA device.  This file imports no JAX, so it runs on a machine without
 it:
 
@@ -354,6 +355,85 @@ def test_reference_tracker_on_card_matches_cpu(option):
         dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
         assert np.linalg.norm(Tg[:3, 3] - Tc[:3, 3]) < 1e-3 and dr < 0.01
     assert sum(o["status"] for r in card for o in r["objects"]) >= 6
+
+
+DIST = (-0.28, 0.07, 0.0, 0.0, 0.0)    # tests/test_pipeline_e2e.py:258
+
+
+def _bench_cfg(k1: float = 0.0, k2: float = 0.0):
+    """chip_smoke.py's bench_config (bench.py's, tpu_fast's LM budgets) at
+    1242x375, with the lens's k1/k2 configured."""
+    cfg = VDOConfig()
+    return cfg.replace(
+        camera=dataclasses.replace(
+            cfg.camera, fx=721.5377, fy=721.5377, cx=621.0, cy=187.5,
+            width=1242, height=375, bf=387.5744, k1=k1, k2=k2),
+        tracking=dataclasses.replace(cfg.tracking, dataset=KITTI,
+                                     depth_map_factor=256.0),
+        shapes=ShapeConfig(),
+        solver=dataclasses.replace(cfg.solver, lm_iters=10, lm_iters_obj=6))
+
+
+def _one_frame_on_both(cfg, ds, fid: int, tmp_path):
+    """Frame fid by the host Tracker on the CPU and on the card, both from
+    the card's state after frame fid - 1 (a checkpoint payload) with the
+    same draws: {"cpu": report, "cuda": report}."""
+    import pickle
+
+    from vdo_slam_tpu_torch.pipeline import System
+    from vdo_slam_tpu_torch.pipeline.draws import UniformDraws, frame_uniforms
+    from vdo_slam_tpu_torch.utils.checkpoint import (save_checkpoint,
+                                                     tracker_from_numpy)
+
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                  device="cuda")
+    for f in range(fid):
+        sysm.track_rgbd(ds[f])
+    save_checkpoint(sysm.tracker, tmp_path / "ck.pkl")
+    with open(tmp_path / "ck.pkl", "rb") as fh:
+        payload = pickle.load(fh)
+    u = frame_uniforms(cfg, fid, torch.Generator())
+    reps = {}
+    for dev in ("cpu", "cuda"):
+        tr = tracker_from_numpy(payload, cfg, device=dev)
+        draws = UniformDraws({k: v.to(dev) for k, v in u.items()})
+        tr._frame_draws = lambda d=draws: d
+        reps[dev] = tr.grab_frame(ds[fid])
+    return reps
+
+
+def test_distorted_frame_on_card_matches_cpu(tmp_path):
+    """One frame of the bench scene rendered through a barrel lens (k1/k2
+    configured, so every stage warps through undistortion), stepped by the
+    host Tracker from one state on the card and on the CPU with the same
+    draws: held to the undistorted step's bound, the same objects, and
+    each object's motion within 5e-3 m."""
+    scene = make_scene(num_frames=6, width=1242, height=375, num_objects=3,
+                       fx=721.5377, seed=7, dist=DIST)
+    cfg = _bench_cfg(k1=DIST[0], k2=DIST[1])
+    ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
+    reps = _one_frame_on_both(cfg, ds, 4, tmp_path)
+    cpu, card = reps["cpu"], reps["cuda"]
+
+    def ids(rep):
+        return [(o["model_label"], o["sem_label"], o["status"])
+                for o in rep["objects"]]
+
+    assert ids(card) == ids(cpu)
+    assert sum(o["status"] for o in cpu["objects"]) >= 2
+    for oc, og in zip(cpu["objects"], card["objects"]):
+        if oc["status"]:
+            assert np.linalg.norm(np.asarray(og["H"])[:3, 3]
+                                  - np.asarray(oc["H"])[:3, 3]) < 5e-3
+    Tc = np.asarray(cpu["T_cw"], np.float64)
+    Tg = np.asarray(card["T_cw"], np.float64)
+    E = np.linalg.inv(Tc) @ Tg
+    s = np.array([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0], E[1, 0] - E[0, 1]])
+    dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
+    dt = np.linalg.norm(Tg[:3, 3] - Tc[:3, 3])
+    print(f"distorted frame 4, card vs CPU: {dt:.3e} m, {dr:.3e} deg, "
+          f"camera inliers {card['n_inlier_cam']} / {cpu['n_inlier_cam']}")
+    assert dt < 1e-3 and dr < 0.01, (dt, dr)
 
 
 def test_tracker_fetch_is_one_exact_copy():

@@ -124,6 +124,27 @@ class TestImage:
             jimg.rgb_to_gray(jnp.asarray(rgb)), rtol=1e-6)
 
 
+    @pytest.mark.parametrize("channels", [0, 2])
+    def test_gather_bilinear(self, channels):
+        rng = np.random.default_rng(22)
+        shape = (30, 40) + ((channels,) if channels else ())
+        img = rng.normal(size=shape).astype(np.float32)
+        uv = rng.uniform(-3, 43, (200, 2)).astype(np.float32)
+        uv[:4] = [[0, 0], [39, 29], [39.5, 29.5], [-0.5, 10]]
+        np.testing.assert_allclose(
+            image.gather_bilinear(_t(img), _t(uv), fill=-1.0),
+            jimg.gather_bilinear(jnp.asarray(img), jnp.asarray(uv),
+                                 fill=-1.0), rtol=0, atol=1e-6)
+
+    @pytest.mark.parametrize("seed", [23, 24])
+    def test_per_label_rank(self, seed):
+        rng = np.random.default_rng(seed)
+        labels = rng.integers(0, 5, 300).astype(np.int32)
+        valid = rng.random(300) > 0.25
+        same(select.per_label_rank(_t(labels), _t(valid)),
+             jsel.per_label_rank(jnp.asarray(labels), jnp.asarray(valid)))
+
+
 class TestFrontend:
     def test_static_candidates(self, frames):
         f = frames[0]

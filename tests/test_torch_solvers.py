@@ -218,3 +218,50 @@ class TestFlowLM:
                                       np.asarray(ref["n_inlier"]))
         assert_pose_close(out["T"], ref["T"])
         np.testing.assert_array_equal(out["T"][2], T0[2])
+
+
+class TestFlowLMWrappers:
+    """solve_camera / solve_objects (flow_lm.py:224-252): the solve plus
+    uv_cur = uv_last + refined flow, and the per-slot batch."""
+
+    def test_solve_camera(self):
+        # test_camera_solve's problem, through the wrapper
+        pr = make_problem(500, 8)
+        xi = jnp.asarray([0.002, 0, -0.001, 0.02, -0.01, 0.03], jnp.float32)
+        T0 = np.asarray(jse3.exp(xi)) @ pr["T_cur"]
+        jp = jlm.FlowLMParams(info_flow=0.3, iters=4, lambda_init=1e-5,
+                              unroll=2)
+        pp = flow_lm.FlowLMParams(info_flow=0.3, iters=4, lambda_init=1e-5)
+        args = (pr["uv_last"], pr["depth_last"], pr["flow"], pr["T_last"],
+                pr["valid"])
+        ref = jlm.solve_camera(jnp.asarray(T0), *map(jnp.asarray, args),
+                               jnp.asarray(K_INT), jp)
+        out = flow_lm.solve_camera(_t(T0), *map(_t, args), _t(K_INT), pp)
+        assert set(out) == set(ref)
+        np.testing.assert_array_equal(out["inlier"], np.asarray(ref["inlier"]))
+        assert_pose_close(out["T"], ref["T"])
+        np.testing.assert_allclose(out["uv_cur"], np.asarray(ref["uv_cur"]),
+                                   rtol=0, atol=1e-3)
+
+    def test_solve_objects(self):
+        pr = make_problem(200, 12)
+        rng = np.random.default_rng(13)
+        valid = np.stack([pr["valid"], pr["valid"] & (rng.random(200) > 0.5)])
+        G0 = np.stack([np.asarray(jse3.exp(jnp.asarray(
+            rng.normal(size=6) * 0.01, jnp.float32))) @ pr["T_cur"]
+            for _ in range(2)]).astype(np.float32)
+        jp = jlm.FlowLMParams(info_flow=0.5, iters=4, lambda_init=1e-5,
+                              unroll=2)
+        pp = flow_lm.FlowLMParams(info_flow=0.5, iters=4, lambda_init=1e-5)
+        shared = (pr["uv_last"], pr["depth_last"], pr["flow"], pr["T_last"])
+        ref = jlm.solve_objects(jnp.asarray(G0), *map(jnp.asarray, shared),
+                                jnp.asarray(valid), jnp.asarray(K_INT), jp)
+        out = flow_lm.solve_objects(_t(G0), *map(_t, shared), _t(valid),
+                                    _t(K_INT), pp)
+        assert set(out) == set(ref)
+        assert out["uv_cur"].shape == (2, 200, 2)
+        np.testing.assert_array_equal(out["n_inlier"],
+                                      np.asarray(ref["n_inlier"]))
+        assert_pose_close(out["T"], ref["T"])
+        np.testing.assert_allclose(out["uv_cur"], np.asarray(ref["uv_cur"]),
+                                   rtol=0, atol=1e-3)

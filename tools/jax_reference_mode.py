@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The JAX package's accuracy digits for the default entry point, System
-mode "reference", the numbers chip_smoke.py holds the PyTorch port's
-phases 8 and 9 to.
+mode "reference", and for the on-disk input path: the numbers chip_smoke.py
+holds the PyTorch port's phases 8, 9 and 11 to.
 
     JAX_PLATFORMS=cpu python tools/jax_reference_mode.py [--runs NAME ...]
 
@@ -20,7 +20,16 @@ Runs (the scenes and configs chip_smoke.py builds):
   distorted     25 frames of the bench scene rendered through
                 dist=(-0.28, 0.07, 0, 0, 0), k1/k2 configured, BA off;
   control       the same frames with the coefficients left at zero;
-  distorted_fused  the distorted run in System(mode="fused").
+  distorted_fused  the distorted run in System(mode="fused");
+  disk_cli      the first 26 frames of the 101-frame bench scene written
+                with write_reference_sequence (DepthMapFactor 256) beside a
+                reference-format settings file for bench_ba_config
+                (chip_smoke.py's `settings_yaml`, the file chip_smoke
+                writes), then the CLI, run.main([settings,
+                sequence]), in its default mode with both BA passes: its
+                metrics_initial and metrics_refined over the 25 frames;
+  disk_fused    System(load_settings(settings), mode="fused"), BA off,
+                over the same written sequence (SequenceDataset).
 Prints one JSON object, run name -> metrics.
 """
 
@@ -38,8 +47,11 @@ sys.path.insert(0, str(REPO))
 W, H = 1242, 375
 N_REF, N_OPT = 100, 25
 DIST = (-0.28, 0.07, 0.0, 0.0, 0.0)
+N_DISK = 25
 RUNS = ("reference", "omd", "nonjoint", "distorted", "control",
-        "distorted_fused")
+        "distorted_fused", "disk_cli", "disk_fused")
+SCENE_FIELDS = ("rgb", "depth", "flow", "mask", "T_wc_gt", "obj_H_gt",
+                "obj_pose_gt")
 
 
 def bench_config(**tracking):
@@ -63,6 +75,41 @@ def bench_ba_config():
         cfg.backend, full_obs_cap=245760, full_ter_cap=131072,
         full_point_cap=122880, full_motion_cap=192, full_smo_cap=192,
         local_iters=4))
+
+
+def disk_runs(scene, todo) -> dict:
+    """The disk_cli and disk_fused runs over the scene's first N_DISK + 1
+    frames written to a temporary directory."""
+    import contextlib
+    import io
+    import tempfile
+
+    from chip_smoke import settings_yaml
+    from vdo_slam_tpu import run as cli
+    from vdo_slam_tpu.config import load_settings
+    from vdo_slam_tpu.io.dataset import SequenceDataset
+    from vdo_slam_tpu.io.sequence_writer import write_reference_sequence
+
+    out = {}
+    first = dataclasses.replace(scene, **{
+        f: getattr(scene, f)[:N_DISK + 1] for f in SCENE_FIELDS})
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = write_reference_sequence(first, Path(tmp) / "seq",
+                                       depth_map_factor=256.0, bf=387.5744)
+        yaml = Path(tmp) / "settings.yaml"
+        yaml.write_text(settings_yaml(bench_ba_config()))
+        if "disk_cli" in todo:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main([str(yaml), str(seq), "--quiet"])
+            rep = json.loads(buf.getvalue())
+            out["disk_cli"] = {"frames": rep["frames"],
+                               "initial": rep["metrics_initial"],
+                               "refined": rep["metrics_refined"]}
+        if "disk_fused" in todo:
+            out["disk_fused"] = run(load_settings(yaml), SequenceDataset(seq),
+                                    N_DISK, mode="fused")
+    return out
 
 
 def omd_scene_config():
@@ -102,8 +149,11 @@ def main() -> int:
 
     out = {}
     todo = set(args.runs)
-    if todo & {"reference", "nonjoint"}:
-        n = N_REF + 1 if "reference" in todo else N_OPT + 1
+    if todo & {"reference", "nonjoint", "disk_cli", "disk_fused"}:
+        # the disk runs write frames of the 101-frame scene, as
+        # chip_smoke.py does
+        n = (N_REF + 1 if todo & {"reference", "disk_cli", "disk_fused"}
+             else N_OPT + 1)
         scene = make_scene(num_frames=n, width=W, height=H, num_objects=3,
                            fx=721.5377, seed=7)
         ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
@@ -112,6 +162,7 @@ def main() -> int:
         if "nonjoint" in todo:
             out["nonjoint"] = run(bench_config(joint_flow=False,
                                                depth_noise=True), ds, N_OPT)
+        out.update(disk_runs(scene, todo))
     if "omd" in todo:
         scene, cfg = omd_scene_config()
         ds = SyntheticOMDDataset(scene, depth_map_factor=1000.0,

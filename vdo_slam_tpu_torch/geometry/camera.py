@@ -14,6 +14,11 @@ from . import se3
 Tensor = torch.Tensor
 
 
+def intrinsics(fx: float, fy: float, cx: float, cy: float,
+               device="cpu") -> Tensor:
+    return torch.tensor([fx, fy, cx, cy], dtype=torch.float32, device=device)
+
+
 def unproject(uv: Tensor, z: Tensor, K: Tensor) -> Tensor:
     """Back-project pixels (..., 2) with depth (...,) to camera frame
     (..., 3): x = (u - cx) z / fx, y = (v - cy) z / fy (Frame.cc:475-477)."""
@@ -39,6 +44,11 @@ def unproject_to_world(uv: Tensor, z: Tensor, K: Tensor,
                        T_wc: Tensor) -> Tensor:
     """Pixel + depth -> world point through camera->world pose T_wc."""
     return se3.apply(T_wc, unproject(uv, z, K))
+
+
+def project_from_world(X_w: Tensor, K: Tensor, T_cw: Tensor) -> Tensor:
+    """World point -> pixel through world->camera pose T_cw."""
+    return project(se3.apply(T_cw, X_w), K)
 
 
 def in_bounds(uv: Tensor, width: int, height: int,

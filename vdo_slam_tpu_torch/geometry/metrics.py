@@ -42,6 +42,24 @@ def camera_rpe(T_cw_cur, T_cw_last, T_cw_gt_cur, T_cw_gt_last):
     return translation_norm(err), clamped_trace_angle_deg(err)
 
 
+def camera_rpe_from_world_poses(T_wc: Tensor, T_wc_gt: Tensor):
+    """Sequence camera error as in GetMetricError (Tracking.cc:3250-3295)
+    over stacked world camera poses (F, 4, 4); per pair (t, r_deg) of
+    shape (F-1,)."""
+    err = ((T_wc[1:] @ se3.inv(T_wc[:-1]))
+           @ (T_wc_gt[:-1] @ se3.inv(T_wc_gt[1:])))
+    return translation_norm(err), clamped_trace_angle_deg(err)
+
+
+def object_rpe_body(H: Tensor, H_gt_body: Tensor, L_w_prev: Tensor):
+    """Object motion error in body frame (Tracking.cc:3316-3351):
+    RigMotBody = L_prev^-1 H L_prev, err = RigMotBody^-1 H_gt_body.
+    Returns (t, r_deg)."""
+    H_body = se3.inv(L_w_prev) @ H @ L_w_prev
+    err = se3.inv(H_body) @ H_gt_body
+    return translation_norm(err), clamped_trace_angle_deg(err)
+
+
 def object_speed(H: Tensor, centroid_prev: Tensor) -> Tensor:
     """||t_H - (I - R_H) c|| * 36 in km/h (Tracking.cc:952-964)."""
     R = H[..., :3, :3]
@@ -49,3 +67,15 @@ def object_speed(H: Tensor, centroid_prev: Tensor) -> Tensor:
     eye = torch.eye(3, dtype=H.dtype, device=H.device)
     v = t - torch.einsum("...ij,...j->...i", eye - R, centroid_prev)
     return torch.linalg.vector_norm(v, dim=-1) * 36.0
+
+
+def average(values: Tensor, valid: Tensor | None = None,
+            rms: bool = False) -> Tensor:
+    """Mean or RMS over valid entries (GetMetricError uses bRMSError=false)."""
+    if valid is None:
+        valid = torch.ones_like(values, dtype=torch.bool)
+    count = torch.clamp(valid.sum(), min=1)
+    if rms:
+        return torch.sqrt(torch.sum(torch.where(valid, values * values, 0.0))
+                          / count)
+    return torch.sum(torch.where(valid, values, 0.0)) / count

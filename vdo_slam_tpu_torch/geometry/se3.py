@@ -152,6 +152,12 @@ def compose(*Ts: Tensor) -> Tensor:
     return out
 
 
+def identity(batch_shape=(), dtype=torch.float32, device="cpu") -> Tensor:
+    """(*batch_shape, 4, 4) identities (a broadcast view, as in JAX)."""
+    return torch.eye(4, dtype=dtype, device=device).expand(
+        tuple(batch_shape) + (4, 4))
+
+
 def retract(T: Tensor, xi: Tensor) -> Tensor:
     """Left-multiplicative update exp(xi) @ T (g2o VertexSE3Expmap oplus)."""
     return exp(xi) @ T

@@ -1,5 +1,5 @@
 """Image-plane tensor ops — port of vdo_slam_tpu/ops/image.py
-(preprocess_depth, gather_int, rgb_to_gray)."""
+(preprocess_depth, gather_int, gather_bilinear, rgb_to_gray)."""
 
 from __future__ import annotations
 
@@ -42,6 +42,28 @@ def gather_int(img: Tensor, uv: Tensor, fill=0.0) -> Tensor:
     if img.ndim == 3:
         return torch.where(inb[..., None], vals, fill)
     return torch.where(inb, vals, fill)
+
+
+def gather_bilinear(img: Tensor, uv: Tensor, fill=0.0) -> Tensor:
+    """Bilinear sampling of (H, W) or (H, W, C) at float uv (..., 2);
+    out-of-bounds neighbours read `fill`."""
+    H, W = img.shape[0], img.shape[1]
+    u, v = uv[..., 0], uv[..., 1]
+    u0, v0 = torch.floor(u), torch.floor(v)
+    du, dv = u - u0, v - v0
+    if img.ndim == 3:
+        du, dv = du[..., None], dv[..., None]
+
+    def at(vi, ui):
+        inb = (ui >= 0) & (ui < W) & (vi >= 0) & (vi < H)
+        vals = img[vi.clamp(0, H - 1).to(torch.int64),
+                   ui.clamp(0, W - 1).to(torch.int64)]
+        return torch.where(inb[..., None] if img.ndim == 3 else inb, vals,
+                           fill)
+
+    top = at(v0, u0) * (1 - du) + at(v0, u0 + 1) * du
+    bot = at(v0 + 1, u0) * (1 - du) + at(v0 + 1, u0 + 1) * du
+    return top * (1 - dv) + bot * dv
 
 
 def rgb_to_gray(img: Tensor) -> Tensor:

@@ -51,6 +51,24 @@ def compact(valid: Tensor):
     return order, valid.sum(dim=-1)
 
 
+def per_label_rank(labels: Tensor, valid: Tensor) -> Tensor:
+    """Rank of each entry among the valid entries of its label, in index
+    order; invalid entries get rank N (never selected)."""
+    n = labels.shape[0]
+    dev = labels.device
+    key = torch.where(valid, labels.to(torch.int64),
+                      torch.full_like(labels, 2**30, dtype=torch.int64))
+    order = torch.sort(key, stable=True).indices
+    sk = key[order]
+    idx = torch.arange(n, device=dev)
+    same = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                      sk[1:] == sk[:-1]])
+    run_start = torch.cummax(torch.where(same, 0, idx), dim=0).values
+    rank = torch.zeros(n, dtype=torch.int64, device=dev).scatter(
+        0, order, idx - run_start)
+    return torch.where(valid, rank, n)
+
+
 def quota_select(labels: Tensor, valid: Tensor, priority: Tensor,
                  quota: int, k: int):
     """Up to `quota` entries per label (highest priority first), then the

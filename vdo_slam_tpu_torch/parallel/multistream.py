@@ -1,5 +1,6 @@
-"""The fused per-frame tracking step, for one stream and for S — port of
-make_stream_state, make_frame_step and make_multistream_step of
+"""The fused per-frame tracking step, for one stream and for S, and the
+probe that times its spans — port of make_stream_state, make_frame_step,
+make_multistream_step and make_scan_probe of
 vdo_slam_tpu/parallel/multistream.py.
 
 One step runs the whole frame: the wire decode (packed=True), mask
@@ -21,6 +22,7 @@ NamedSharding) is not ported: one device holds all S.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -118,7 +120,7 @@ def make_frame_step(cfg: VDOConfig, device="cuda", packed: bool = False):
     `inputs` may carry "fast_scores", the frame's FAST score maps, where
     the caller has scored them already (the S-stream step).
     """
-    init_body, track_body = _make_bodies(cfg, device)
+    init_body, track_body, _ = _make_bodies(cfg, device)
     unpack = stages.make_unpack(cfg)
 
     def step(state: StreamState, inputs, draws: FrameDraws,
@@ -132,8 +134,9 @@ def make_frame_step(cfg: VDOConfig, device="cuda", packed: bool = False):
 
 
 def _make_bodies(cfg: VDOConfig, device):
-    """(init_body, track_body) of the step, each (state, dense inputs,
-    draws) -> (state, metrics)."""
+    """(init_body, track_body, track_spans) of the step: the bodies each
+    (state, dense inputs, draws) -> (state, metrics); track_spans the
+    (name, span) pairs track_body composes, in STAGE_SPANS order."""
     tr = cfg.tracking
     Kobj = cfg.shapes.max_objects
     L_tab = cfg.shapes.max_sem_labels
@@ -159,8 +162,12 @@ def _make_bodies(cfg: VDOConfig, device):
         idx, tv = select.masked_top_k(counts, counts > 0, L_tab)
         return torch.where(tv, idx, 0).to(torch.int32)
 
-    def track_body(state: StreamState, inputs, draws: FrameDraws):
-        last = state.frame
+    # The track body as the reference's spans (multistream.py:279-289 of
+    # the JAX package), each ctx -> the entries it adds to ctx.  ctx starts
+    # as {"state", "inputs", "draws"}; the stage probe times them one by
+    # one (make_scan_probe).
+    def mask_update(ctx):
+        last, inputs = ctx["state"].frame, ctx["inputs"]
         # mask-propagation repair (UpdateMask, Tracking.cc:2997-3241)
         if tr.fused_mask_prop:
             seg, _ = mask_prop_fn(inputs["seg"], last.seg, last.flow_map,
@@ -168,13 +175,22 @@ def _make_bodies(cfg: VDOConfig, device):
         else:
             seg = inputs["seg"]
         prep = prep_fn(inputs["rgb"], inputs["depth_raw"], inputs["flow"],
-                       seg, draws, inputs.get("fast_scores"))
-        depth = prep["depth"]
-        stat_cur, dyn_cur = inherit_fn(last.static, last.dynamic, depth, seg)
-        cam_out = camera_fn(last.static, stat_cur["xy"], stat_cur["depth"],
-                            last.T_cw, last.velocity, inputs["T_cw_gt"],
-                            last.T_cw_gt, draws)
-        T_cw = cam_out["T_cw"]
+                       seg, ctx["draws"], inputs.get("fast_scores"))
+        stat_cur, dyn_cur = inherit_fn(last.static, last.dynamic,
+                                       prep["depth"], seg)
+        return {"seg": seg, "prep": prep, "stat_cur": stat_cur,
+                "dyn_cur": dyn_cur}
+
+    def camera_est(ctx):
+        last, stat_cur = ctx["state"].frame, ctx["stat_cur"]
+        return {"cam_out": camera_fn(
+            last.static, stat_cur["xy"], stat_cur["depth"], last.T_cw,
+            last.velocity, ctx["inputs"]["T_cw_gt"], last.T_cw_gt,
+            ctx["draws"])}
+
+    def obj_track(ctx):
+        state, dyn_cur = ctx["state"], ctx["dyn_cur"]
+        last, T_cw = state.frame, ctx["cam_out"]["T_cw"]
         sf = sflow_fn(last.dynamic, dyn_cur["xy"], dyn_cur["depth"],
                       dyn_cur["sem_label"], last.T_cw, T_cw)
         cls = classify_fn(
@@ -182,11 +198,20 @@ def _make_bodies(cfg: VDOConfig, device):
             sf["sf_norm"], dyn_cur["depth"], dyn_cur["xy"],
             last.dynamic.sem_label, state.slot_sem, state.slot_model,
             state.slot_H, state.slot_active, state.max_id)
-        obj_out = objects_fn(
+        return {"sf": sf, "cls": cls}
+
+    def obj_est(ctx):
+        last, dyn_cur, cls = ctx["state"].frame, ctx["dyn_cur"], ctx["cls"]
+        return {"obj_out": objects_fn(
             last.dynamic, dyn_cur["xy"], dyn_cur["depth"],
             dyn_cur["sem_label"], cls["slot_sem"], cls["slot_active"],
             cls["slot_has_mm"], cls["slot_H_prev"], cls["member_ok"],
-            last.T_cw, T_cw, draws)
+            last.T_cw, ctx["cam_out"]["T_cw"], ctx["draws"])}
+
+    def map_update(ctx):
+        inputs, seg, prep = ctx["inputs"], ctx["seg"], ctx["prep"]
+        cam_out, cls, obj_out = ctx["cam_out"], ctx["cls"], ctx["obj_out"]
+        depth, T_cw = prep["depth"], cam_out["T_cw"]
         ok_slot = cls["slot_active"] & (obj_out["n_init"]
                                         >= tr.min_init_inliers)
         gt_sems = inputs.get("gt_sems")
@@ -205,7 +230,7 @@ def _make_bodies(cfg: VDOConfig, device):
         dyn_new = renew_d_fn(
             obj_out["uv_cur"], cls["obj_label"], carry_dyn, prep["obj_cand"],
             cls["slot_sem"], cls["slot_model"], ok_slot, depth,
-            inputs["flow"], seg, T_cw, draws)
+            inputs["flow"], seg, T_cw, ctx["draws"])
         new_state = StreamState(
             frame=FrameState(
                 static=stat_new, dynamic=dyn_new, T_cw=T_cw,
@@ -232,7 +257,17 @@ def _make_bodies(cfg: VDOConfig, device):
             "slot_n_inlier": obj_out["n_inlier"],
             "used_motion_model": cam_out["used_motion_model"],
         }
-        return new_state, metrics
+        return {"new_state": new_state, "metrics": metrics}
+
+    track_spans = (("mask_update", mask_update), ("camera_est", camera_est),
+                   ("obj_track", obj_track), ("obj_est", obj_est),
+                   ("map_update", map_update))
+
+    def track_body(state: StreamState, inputs, draws: FrameDraws):
+        ctx = {"state": state, "inputs": inputs, "draws": draws}
+        for _, span in track_spans:
+            ctx.update(span(ctx))
+        return ctx["new_state"], ctx["metrics"]
 
     def init_body(state: StreamState, inputs, draws: FrameDraws):
         prep = prep_fn(inputs["rgb"], inputs["depth_raw"], inputs["flow"],
@@ -262,14 +297,14 @@ def _make_bodies(cfg: VDOConfig, device):
         }
         return new_state, metrics
 
-    return init_body, track_body
+    return init_body, track_body, track_spans
 
 
 def _make_batched_step(cfg: VDOConfig, device, packed: bool, finish):
     """step(states, inputs, uniforms, initialized) over a leading stream
     dimension; `finish(state, metrics)` maps one stream's results to the
     tensors the step returns for it."""
-    init_body, track_body = _make_bodies(cfg, device)
+    init_body, track_body, _ = _make_bodies(cfg, device)
     unpack = stages.make_unpack(cfg)
     score = stages.make_score_pyramid(cfg)
     detect = not cfg.frontend.use_sample_feature
@@ -293,6 +328,152 @@ def _make_batched_step(cfg: VDOConfig, device, packed: bool, finish):
         return _unflatten(leaves), out
 
     return step
+
+
+STAGE_SPANS = ("mask_update", "camera_est", "obj_track", "obj_est",
+               "map_update")
+# the probe's spans: the 5 reference spans plus the fused path's own wire
+# decode before them and output flattening after them, so that the spans
+# account for the whole packed step
+PROBE_SPANS = ("wire_unpack",) + STAGE_SPANS + ("output_pack",)
+
+
+class _SpanClock:
+    """Marks on one timeline: CUDA events on torch's current stream, or the
+    host clock on the CPU.  `ms(a, b)` waits for mark b."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def ms(self, a, b) -> float:
+        if not self.cuda:
+            return (b - a) * 1e3
+        b.synchronize()
+        return a.elapsed_time(b)
+
+
+class ScanProbe:
+    """The per-span timing probe of the fused path (make_scan_probe)."""
+
+    def __init__(self, cfg: VDOConfig, device, n_iters: int):
+        from ..pipeline.fused import pack_outputs
+
+        self.n_iters = max(int(n_iters), 1)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_scan_probe(device='cuda'): no CUDA device; pass "
+                "device='cpu' to run on the CPU")
+        _, _, track_spans = _make_bodies(cfg, self.device)
+        unpack = stages.make_unpack(cfg)
+        self._step = make_frame_step(cfg, self.device, packed=True)
+        self._pack = pack_outputs
+        self.spans = (
+            (("wire_unpack",
+              lambda ctx: {"inputs": unpack(ctx["packed_inputs"])}),)
+            + track_spans
+            + (("output_pack", lambda ctx: {"vec": pack_outputs(
+                ctx["new_state"], ctx["metrics"])}),))
+        if tuple(name for name, _ in self.spans) != PROBE_SPANS:
+            raise AssertionError("the step's spans are not PROBE_SPANS")
+
+    def contexts(self, state: StreamState, packed_inputs: dict,
+                 draws: FrameDraws):
+        """Yield (name, span, ctx) in order, ctx holding what the spans
+        before this one made: a span can be run (or profiled) alone as
+        span(ctx)."""
+        ctx = {"state": state, "packed_inputs": packed_inputs,
+               "draws": draws}
+        for name, span in self.spans:
+            yield name, span, ctx
+            ctx = dict(ctx, **span(ctx))
+
+    def _span_ms(self, clock, state, packed_inputs, draws) -> list[float]:
+        """Each span's ms per iteration over n_iters runs of all spans."""
+        tot = [0.0] * len(self.spans)
+        marks = []
+        for _ in range(self.n_iters):
+            ctx = {"state": state, "packed_inputs": packed_inputs,
+                   "draws": draws}
+            row = [clock.mark()]
+            for _, span in self.spans:
+                ctx.update(span(ctx))
+                row.append(clock.mark())
+            marks.append(row)
+        for row in marks:
+            for k in range(len(self.spans)):
+                tot[k] += clock.ms(row[k], row[k + 1])
+        return [t / self.n_iters for t in tot]
+
+    def _frame_ms(self, clock, state, packed_inputs, draws) -> float:
+        """One whole packed step plus pack_outputs, ms per iteration."""
+        a = clock.mark()
+        for _ in range(self.n_iters):
+            self._pack(*self._step(state, packed_inputs, draws, True))
+        return clock.ms(a, clock.mark()) / self.n_iters
+
+    def __call__(self, state: StreamState, packed_inputs: dict,
+                 draws: FrameDraws, rounds: int = 2):
+        """(times, rtt_ms): times maps each of PROBE_SPANS, and
+        "_frame_ms", to ms per frame, the least of `rounds` rounds of
+        n_iters iterations (after one untimed warm pass); rtt_ms is an
+        empty timed region, its final wait included."""
+        clock = _SpanClock(self.device)
+        rounds = max(int(rounds), 1)
+        self._frame_ms(clock, state, packed_inputs, draws)        # warm
+        spans = [self._span_ms(clock, state, packed_inputs, draws)
+                 for _ in range(rounds)]
+        times = {name: min(r[k] for r in spans)
+                 for k, name in enumerate(PROBE_SPANS)}
+        times["_frame_ms"] = min(
+            self._frame_ms(clock, state, packed_inputs, draws)
+            for _ in range(rounds))
+        rtt = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            clock.ms(clock.mark(), clock.mark())
+            rtt.append((time.perf_counter() - t0) * 1e3)
+        return times, min(rtt)
+
+
+def make_scan_probe(cfg: VDOConfig, device="cuda",
+                    n_iters: int = 8) -> ScanProbe:
+    """Per-span time probe of the fused path — the reference's 5-span
+    timing harness (Map.h:83-84, System.cc:204-237), port of the JAX
+    package's make_scan_probe (multistream.py:256-488).
+
+    The JAX package times prefix programs, because there the step is one
+    executable that cannot be timed from inside.  Eager PyTorch runs the
+    step op by op, so here the spans of the packed step are run one after
+    another on the caller's state, in the JAX span map:
+      wire_unpack  -> the int16 wire decode (stages.make_unpack)
+      mask_update  -> mask propagation + prepare + inheritance
+      camera_est   -> camera RANSAC + flow LM
+      obj_track    -> scene flow + the device classifier
+      obj_est      -> the per-object motion solves
+      map_update   -> static + dynamic renewal, the new state
+      output_pack  -> pipeline/fused.py:pack_outputs
+    They are the spans that the step's track body composes
+    (`_make_bodies`), so the probe times the code the step runs.
+
+    On CUDA each span lies between two CUDA events on the current stream;
+    on the CPU between two reads of the host clock.  The step is bound by
+    the host's dispatch (the device is busy a small share of each step), so
+    an event pair measures a span's wall time on the stream, host dispatch
+    included: what the reference's spans measure (a wall clock around each
+    stage, Tracking.cc).  Nothing in the caller's state changes: the spans
+    return new tensors.
+
+    Returns a ScanProbe: probe(state, packed_inputs, draws, rounds) ->
+    (times_ms incl. "_frame_ms", rtt_ms)."""
+    return ScanProbe(cfg, device, n_iters)
 
 
 def make_multistream_step(cfg: VDOConfig, device="cuda"):

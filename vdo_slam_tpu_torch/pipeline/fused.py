@@ -34,7 +34,11 @@ on).
 
 Frame f's random draws depend on (cfg.seed, f mod MAX_FRAMES) only
 (pipeline/draws.py), the port's form of the JAX tracker's pre-split key
-ring.  Left out: the stage-time probe (`calibrate_stage_times`).
+ring.
+
+Every archived frame carries the reference's five stage times: zeros until
+`calibrate_stage_times` measures them, then the measured split, for the
+frames archived before it too.
 """
 
 from __future__ import annotations
@@ -152,9 +156,10 @@ class FusedTracker:
         self._stage_last_sems: set[int] | None = None
         self._last_obj_rows = np.zeros((0, 10), np.float32)
         self._last_T_wc_gt = np.eye(4, dtype=np.float32)
-        # per-frame stage times archived with every frame: the JAX tracker
-        # fills them from its probe (not ported), so they stay zero
+        # per-frame stage times archived with every frame: zeros until
+        # calibrate_stage_times() measures the split
         self._stage_ms = np.zeros(5, np.float32)
+        self._probe_rtt_ms = 0.0
         self._pending = None
         self._pending_chunk = None
         self._pending_batch: list = []
@@ -232,6 +237,48 @@ class FusedTracker:
     def frame_draws(self, frame_id: int) -> dict:
         """The uniform draws of frame `frame_id` (pipeline/draws.py)."""
         return draws_mod.frame_uniforms(self.cfg, frame_id, self._generator)
+
+    def probe_inputs(self, fd: FrameData):
+        """(staged inputs, draws) of `fd` as the tracker's next frame, for
+        the stage probe: staged as device_inputs stages it, without
+        advancing the staging-order GT labels (the probe runs off the
+        sequence); drawn for the current frame id from a generator of its
+        own, so no generator the run uses moves."""
+        saved_sems = self._stage_last_sems
+        staged = self.device_inputs(fd)
+        self._stage_last_sems = saved_sems
+        staged.pop("_T_cw_gt_host")
+        draws = draws_mod.UniformDraws(draws_mod.frame_uniforms(
+            self.cfg, self.frame_id, torch.Generator(device=self.device)))
+        return staged, draws
+
+    def calibrate_stage_times(self, fd: FrameData, rounds: int = 2,
+                              n_iters: int = 8) -> dict:
+        """Measure the reference's 5-span stage split (Map.h:83-84,
+        System.cc:204-237) on the fused path (JAX fused.py:248-287).
+
+        Runs the packed step's spans one after another on the tracker's
+        state with `fd` as the next frame, n_iters times per round, and
+        keeps the least of `rounds` rounds (parallel/multistream.py:
+        make_scan_probe has the method and what the times mean).  Returns
+        {span: ms for span in PROBE_SPANS}, "_frame_ms" (one whole packed
+        step plus pack_outputs) and "_rtt_ms" (an empty timed region).  The
+        five STAGE_SPANS, each clamped at 0, are archived with every frame,
+        past and future.  The probe changes nothing the run reads: the
+        state, the frame counter, the staging-order GT labels and the draws
+        of the next frame (its draws come from a generator of its own)."""
+        from ..parallel.multistream import STAGE_SPANS, make_scan_probe
+
+        staged, draws = self.probe_inputs(fd)
+        probe = make_scan_probe(self.cfg, self.device, n_iters=n_iters)
+        times, rtt = probe(self.state, staged, draws, rounds=rounds)
+        self._stage_ms = np.asarray([max(times[k], 0.0) for k in STAGE_SPANS],
+                                    np.float32)
+        self._probe_rtt_ms = rtt
+        # backfill the frames archived before calibration (they hold zeros)
+        for i in range(len(self.map.timings)):
+            self.map.timings[i] = self._stage_ms.copy()
+        return dict(times, _rtt_ms=rtt)
 
     def _to_host(self, vec: torch.Tensor):
         """Queue the copy of an output tensor to a pinned host buffer;

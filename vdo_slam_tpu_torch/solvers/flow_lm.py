@@ -178,3 +178,30 @@ def solve(T_init: Tensor, uv_last: Tensor, depth_last: Tensor,
              / torch.clamp(n_inlier, min=1))
     return {"T": T, "flow": f, "inlier": inlier, "chi2": chi2,
             "n_inlier": n_inlier, "repro_err": repro}
+
+
+def solve_camera(T_init, uv_last, depth_last, flow_meas, T_cw_last, valid, K,
+                 p: FlowLMParams):
+    """Camera pose solve (PoseOptimizationFlow2Cam): `solve` plus the
+    flow-updated current keypoints, uv_cur = uv_last + refined flow
+    (Optimizer.cc:2524-2535)."""
+    out = solve(T_init, uv_last, depth_last, flow_meas, T_cw_last, valid, K, p)
+    out["uv_cur"] = uv_last + out["flow"]
+    return out
+
+
+def solve_objects(G_init, uv_last, depth_last, flow_meas, T_cw_last, valid,
+                  K, p: FlowLMParams):
+    """All object slots in one batched solve: G_init (K, 4, 4), the initial
+    G = T_cw H per slot; each slot's correspondences are its row of `valid`
+    (K, N) over the shared (N, ...) arrays.  The caller maps G back to the
+    world motion H = T_cw^-1 G (Tracking.cc:932-933)."""
+    n = valid.shape[0]
+
+    def per_slot(x):
+        return x.expand((n,) + tuple(x.shape))
+
+    out = solve(G_init, per_slot(uv_last), per_slot(depth_last),
+                per_slot(flow_meas), T_cw_last, valid, K, p)
+    out["uv_cur"] = uv_last[None] + out["flow"]
+    return out
