@@ -85,8 +85,23 @@ Phases, in order (any failure raises and exits nonzero):
      be built), gated the same way, with the reader's host ms per frame
      while the card tracks; (d) the three drawings of
      eval/visualize.py from (b)'s map.  One FAST launch per frame in (b)
-     and (c).  A part whose host library (PIL, matplotlib, g++ with libpng)
-     is missing prints "not run" and its reason and counts as not passed.
+     and (c).  A part whose host library (PIL, matplotlib, g++ with zlib)
+     is missing prints "not run" and its reason and counts as not passed;
+  12. the multi-device paths, on a list that repeats the one card: (a) a
+     copy of phase 5's map from before its full BA, refined by
+     full_ba_inplace(devices=["cuda:0"] * n) for n = 1, 2 and 4 (the edges
+     sharded over n), each held to phase 5's full BA with the bounds of
+     the JAX package's own sharded check (__graft_entry__.py:253-256):
+     cost within 10 %, refined poses within 1e-3, and its refined metrics
+     gated as phase 5's; t_solve_s of each and kernel launches per LM
+     iteration (torch.profiler); (b) MultiStreamSystem(n_streams=4,
+     devices=["cuda:0", "cuda:0"]) over the first 16 frames of phase 7's
+     four windows against the one-device S = 4 run of the same frames:
+     two FAST launches per frame (one per group), each frame's pose within
+     phase 7's stream bounds, equal estimate counts; (c) the ORB
+     orientations, descriptors and Hamming matches and the feature grid
+     (ops/orb.py, ops/grid.py) on the card at one bench frame's FAST
+     keypoints, against the same on the CPU.
 Phase 6 ends with the fused path's stage-time probe
 (FusedTracker.calibrate_stage_times) on the wire path's tracker, where
 bench.py runs it: the seven spans, their sum against a whole step, each
@@ -752,19 +767,21 @@ def gate(rep: dict, ref: dict, what: str) -> None:
     print(f"gate n_obj_estimates{what}: {rep['n_obj_estimates']} >= {need}")
 
 
-def _profiled(fn, what: str):
+def _profiled(fn, what: str, host_ops: bool = True):
     """fn() once under torch.profiler: (result, kernel launches, device ms,
     wall ms), and a line of the operators the host called most.  Launches
     count the kernels the device ran (copies and fills by the copy engine
     are not kernels); device ms sums every device activity (kernels and
     copies; one stream, so they do not overlap); wall ms is the host clock
-    to the final synchronize, profiler overhead included."""
+    to the final synchronize, profiler overhead included.  host_ops=False
+    records the device alone (no operator line): a run of ~10^5 launches
+    then takes seconds, not a minute, to trace and read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -773,10 +790,13 @@ def _profiled(fn, what: str):
     launches = sum(1 for e in dev
                    if not e.name.startswith(("Memcpy", "Memset")))
     dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    ops = sorted((e for e in prof.key_averages()
-                  if e.key.startswith("aten::")), key=lambda e: -e.count)
-    print(f"{what}, operators called most (calls): " + ", ".join(
-        f"{e.key} {e.count}" for e in ops[:10]))
+    if not (host_ops or launches):
+        raise RuntimeError(f"{what}: the profiler recorded no kernel")
+    if host_ops:
+        ops = sorted((e for e in prof.key_averages()
+                      if e.key.startswith("aten::")), key=lambda e: -e.count)
+        print(f"{what}, operators called most (calls): " + ", ".join(
+            f"{e.key} {e.count}" for e in ops[:10]))
     return out, launches, dev_ms, wall
 
 
@@ -826,10 +846,12 @@ def solver_gap(m, cfg, device, card: str) -> dict:
 
 
 def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
-            solvers: bool = True) -> dict:
+            solvers: bool = True, keep_map: bool = False) -> dict:
     """Phases 5 and 6: tracking, every window solve and the full BA, as
     bench.py runs them, through the port's System on the 100 frames of
-    `ds` (frames, or pre-packed wire buffers), gated against `ref`."""
+    `ds` (frames, or pre-packed wire buffers), gated against `ref`.
+    keep_map: also return a copy of the map from before the full BA
+    ("pre_full_map"; its copying is not timed)."""
     import copy
 
     from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
@@ -841,13 +863,24 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
     sysm = System(cfg, enable_local_ba=True, enable_global_ba=True,
                   mode="fused", device=device)
     C = sysm.tracker.chunk
+    kept = {"s": 0.0}
+    if keep_map:
+        full_ba = sysm._full_ba
+
+        def copy_then_full_ba():
+            t = time.perf_counter()
+            kept["map"] = copy.deepcopy(sysm.map)
+            kept["s"] = time.perf_counter() - t
+            full_ba()
+
+        sysm._full_ba = copy_then_full_ba
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0
     t0 = time.perf_counter()
     reports = sysm.run_sequence(ds)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - kept["s"]
     launches = KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
     health, full = sysm.tracker.ba_health, sysm.full_ba_report
@@ -902,7 +935,8 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
         gate(metrics["initial"], ref["initial"], f" ({what}, before full BA)")
         gate(metrics["refined"], ref["refined"], f" ({what}, refined)")
     out = {"fast_launches": launches, "peak_bytes": peak, "wall_s": wall,
-           "metrics": metrics, "system": sysm}
+           "metrics": metrics, "system": sysm,
+           "pre_full_map": kept.get("map")}
     if not solvers:
         return out
 
@@ -1406,8 +1440,9 @@ def cli_and_resume(device, card: str) -> dict:
 
 def host_libraries() -> dict:
     """What the on-disk path needs of the host: PIL (the writer and the
-    Python reader), matplotlib (the drawings), g++ and libpng (the native
-    reader, built here).  Returns {part: None if present, else why not}."""
+    Python reader), matplotlib (the drawings), g++ and zlib (the native
+    reader, built here; it decodes PNG on zlib alone).  Returns {part: None
+    if present, else why not}."""
     import importlib.util
     import shutil
 
@@ -1733,6 +1768,192 @@ def disk_path(scene, device, card: str, libs: dict) -> dict:
     return out
 
 
+N_GROUPED_FRAMES = 16       # phase 12b: frames per stream
+SHARDS = (1, 2, 4)          # phase 12a: edge shards on the one card
+# phase 12a: the JAX package's own sharded check (__graft_entry__.py:
+# 253-256): cost within 10 % of the single-device solve, poses within 1e-3
+SHARD_COST_REL, SHARD_POSE_TOL = 0.1, 1e-3
+# phase 12c: orientations within 1e-4 rad where the centroid moment is at
+# least 20, and (gap x moment) within 2e-3 everywhere: each side's fp32 sum
+# of 961 terms of magnitude <= 15 rounds by up to ~8.6e-4
+# (tests/test_torch_orb_grid.py); descriptor bits equal on >= 99 %
+ORB_ANGLE_TOL, ORB_STRONG_M, ORB_MOMENT_TOL, ORB_BITS = 1e-4, 20.0, 2e-3, 0.99
+
+
+def sharded_ba(ba: dict, cfg, device, card: str) -> dict:
+    """Phase 12a: phase 5's map from before its full BA, refined with the
+    edges sharded over [device] * n, against phase 5's full BA."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
+    from vdo_slam_tpu_torch.eval.results import metric_report
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+
+    pre, ref = ba["pre_full_map"], ba["system"].map
+    ref_rep = ba["system"].full_ba_report
+    ref_poses = np.stack(ref.cam_pose_rf).astype(np.float64)
+    print(f"torch.cuda.device_count() = {torch.cuda.device_count()}; the "
+          f"shards below share one card [{card}]")
+    out = {"t_solve_s": {}, "launches_per_iter": {}, "pose_gap": {}}
+    KERNEL.launches = 0
+    for n in SHARDS:
+        m = copy.deepcopy(pre)
+        torch.cuda.synchronize()
+        rep = full_ba_inplace(m, cfg, device=device, devices=[device] * n)
+        gap = float(np.abs(np.stack(m.cam_pose_rf).astype(np.float64)
+                           - ref_poses).max())
+        rel = abs(rep["cost"] - ref_rep["cost"]) / max(ref_rep["cost"], 1e-6)
+        print(f"full BA over {n} shard(s): {rep['iters_run']} LM iterations, "
+              f"cost {rep['cost0']:.9g} -> {rep['cost']:.9g} (phase 5: "
+              f"{ref_rep['cost0']:.9g} -> {ref_rep['cost']:.9g}, "
+              f"{rel:.3e} apart); t_solve_s {rep['t_solve_s']:.4f} "
+              f"(phase 5: {ref_rep['t_solve_s']:.4f}); largest pose-entry "
+              f"gap to phase 5 {gap:.3e} [{card}]")
+        if not (rel <= SHARD_COST_REL and gap < SHARD_POSE_TOL):
+            raise RuntimeError(f"{n} shards: cost {rel:.3e} apart, pose gap "
+                               f"{gap:.3e} from the single-device full BA")
+        if not rep["cost"] < rep["cost0"]:
+            raise RuntimeError(f"{n} shards: the full BA did not lower the "
+                               f"cost")
+        gate(metric_report(m, refined=True), JAX_REF_BA["refined"],
+             f" (full BA over {n} shard(s), refined)")
+        out["t_solve_s"][n] = rep["t_solve_s"]
+        out["pose_gap"][n] = gap
+    for n in SHARDS[1:]:
+        rep, launches, dev_ms, wall_ms = _profiled(
+            lambda: full_ba_inplace(copy.deepcopy(pre), cfg, device=device,
+                                    devices=[device] * n),
+            f"full BA over {n} shards", host_ops=False)
+        per = launches / rep["iters_run"]
+        print(f"full BA over {n} shards under torch.profiler: {launches} "
+              f"kernel launches in {rep['iters_run']} LM iterations "
+              f"({per:.1f} per iteration, graph build, upload and fetch "
+              f"included), {dev_ms:.3f} ms on the device in {wall_ms:.3f} "
+              f"ms, busy share {dev_ms / wall_ms:.4f} [{card}]")
+        out["launches_per_iter"][n] = per
+    if KERNEL.launches:
+        raise RuntimeError("the full BA launched the FAST kernel")
+    return out
+
+
+def grouped_streams(pds, cfg, device, card: str) -> dict:
+    """Phase 12b: four streams in two groups on [device] * 2 against the
+    four in one group, over the first N_GROUPED_FRAMES frames of phase 7's
+    windows, in the same call."""
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+
+    views = [_View(pds, off, N_GROUPED_FRAMES)
+             for off in stream_offsets(len(pds))]
+    runs = {}
+    for groups, devices in ((1, [device]), (2, [device] * 2)):
+        msys = MultiStreamSystem(cfg, n_streams=N_STREAMS,
+                                 enable_local_ba=False, devices=devices)
+        if len(msys.groups) != groups:
+            raise RuntimeError(f"{len(msys.groups)} stream groups, want "
+                               f"{groups}")
+        torch.cuda.synchronize()
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        msys.run(views)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = KERNEL.launches
+        agg = N_STREAMS * N_GROUPED_FRAMES / wall
+        print(f"S={N_STREAMS} in {groups} group(s): {launches} FAST launches "
+              f"in {N_GROUPED_FRAMES} frames; {agg:.3f} aggregate fps (host "
+              f"clock, window BA off, first frame included) [{card}]")
+        if launches != groups * N_GROUPED_FRAMES:
+            raise RuntimeError(f"{launches} FAST launches, want "
+                               f"{groups * N_GROUPED_FRAMES}: one per group "
+                               f"per frame")
+        runs[groups] = (msys, launches, agg)
+    one, two = runs[1][0], runs[2][0]
+    per1, per2 = one.metrics()["per_stream"], two.metrics()["per_stream"]
+    worst = (0.0, 0.0)
+    for st in range(N_STREAMS):
+        gaps = [_pose_gap(a, b) for a, b in zip(two.maps[st].cam_pose,
+                                                one.maps[st].cam_pose)]
+        dt, dr = max(g[0] for g in gaps), max(g[1] for g in gaps)
+        worst = (max(worst[0], dt), max(worst[1], dr))
+        if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+            raise RuntimeError(f"stream {st}: two groups against one: pose "
+                               f"gap {dt} m, {dr} deg")
+        if per2[st]["n_obj_estimates"] != per1[st]["n_obj_estimates"]:
+            raise RuntimeError(f"stream {st}: {per2[st]['n_obj_estimates']} "
+                               f"object estimates in two groups, "
+                               f"{per1[st]['n_obj_estimates']} in one")
+    print(f"two groups against one: largest pose gap {worst[0]:.3e} m, "
+          f"{worst[1]:.3e} deg (bound {STREAM_T_TOL_M} m / "
+          f"{STREAM_R_TOL_DEG} deg); equal estimate counts [{card}]")
+    return {"launches": runs[2][1], "agg_fps": {g: r[2] for g, r in
+                                                 runs.items()},
+            "worst_gap": worst}
+
+
+def orb_grid(scene, device, card: str) -> dict:
+    """Phase 12c: ORB and the feature grid on the card at the FAST
+    keypoints of the bench scene's first frame, against the CPU."""
+    from vdo_slam_tpu_torch.ops import fast, grid, orb
+
+    gray = torch.from_numpy(np.ascontiguousarray(scene.rgb[0],
+                                                 np.float32)).to(device)
+    det = fast.detect_pyramid(gray)
+    xy = det["xy"][det["valid"]].contiguous()
+    H, W = gray.shape
+
+    def run(d, angle=None):
+        """Every function on device d; `angle` given to a second
+        descriptor call (its own angles where None)."""
+        g, p = gray.to(d), xy.to(d)
+        ang = orb.orientations(g, p)
+        desc = orb.descriptors(g, p)
+        shared = orb.descriptors(g, p, ang if angle is None else angle.to(d))
+        valid = torch.ones(len(p), dtype=torch.bool, device=d)
+        best, dist = orb.match_hamming(desc, desc.roll(1, 0), valid, valid)
+        table, counts = grid.assign_to_grid(p, valid, width=W, height=H)
+        areas = [grid.features_in_area(p, valid, c, 20.0)
+                 for c in p[::max(len(p) // 8, 1)]]
+        return ([x.cpu() for x in (ang, desc, shared, best, dist, table,
+                                   counts)],
+                [x.cpu() for pair in areas for x in pair])
+
+    (ang_c, desc_c, _, best_c, dist_c, tab_c, cnt_c), areas_c = run(
+        torch.device("cpu"))
+    (ang_g, desc_g, shared_g, best_g, dist_g, tab_g, cnt_g), areas_g = run(
+        device, angle=ang_c)
+    p64 = orb._gather_patches(gray.double(), xy).cpu().numpy() * orb._MASK
+    m = np.hypot((p64 * orb._DX).sum((1, 2)), (p64 * orb._DY).sum((1, 2)))
+    gap = np.abs(np.angle(np.exp(1j * (ang_g.double() - ang_c.double())
+                                 .numpy())))
+    strong = m >= ORB_STRONG_M
+
+    def bits_equal(a, b):
+        return float((np.unpackbits(a.numpy(), axis=1)
+                      == np.unpackbits(b.numpy(), axis=1)).mean())
+
+    bits = bits_equal(desc_g, desc_c)
+    same_grid = (torch.equal(tab_g, tab_c) and torch.equal(cnt_g, cnt_c)
+                 and all(torch.equal(a, b) for a, b in zip(areas_g, areas_c)))
+    same_match = torch.equal(best_g, best_c) and torch.equal(dist_g, dist_c)
+    print(f"ORB at {len(xy)} FAST keypoints of frame 0, card against CPU: "
+          f"orientation gap {gap.max():.3e} rad at most "
+          f"({gap[strong].max(initial=0.0):.3e} where |m| >= "
+          f"{ORB_STRONG_M}, {int((~strong).sum())} keypoints below; gap x "
+          f"|m| {(gap * m).max():.3e}); descriptor bits equal {bits:.6f} "
+          f"(with the CPU's angles {bits_equal(shared_g, desc_c):.6f}); "
+          f"Hamming matches identical {same_match}; grid table, counts and "
+          f"{len(areas_c) // 2} area queries identical {same_grid} [{card}]")
+    if not (gap[strong].max(initial=0.0) <= ORB_ANGLE_TOL
+            and (gap * m).max() <= ORB_MOMENT_TOL):
+        raise RuntimeError("ORB orientations differ from the CPU's")
+    if not (bits >= ORB_BITS and same_grid and same_match):
+        raise RuntimeError("ORB descriptors, matches or the grid differ "
+                           "from the CPU's")
+    return {"n_keypoints": len(xy), "angle_gap": float(gap.max()),
+            "bits_equal": bits}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1789,7 +2010,7 @@ def main() -> int:
     phase_done("4 (fused tracking path)")
     dense_ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
     ba = ba_path(dense_ds, bench_ba_config(), device, card, JAX_REF_BA,
-                 "BA path (dense wire)")
+                 "BA path (dense wire)", keep_map=True)
     phase_done("5 (BA path)")
     wire = ba_path(pds, cfg_wire, device, card, JAX_REF_WIRE,
                    "wire path (tpu_fast wire)", solvers=False)
@@ -1810,6 +2031,12 @@ def main() -> int:
     phase_done("10 (CLI and resume)")
     disk = disk_path(scene, device, card, libs)
     phase_done("11 (on-disk input path)")
+    sharded_ba(ba, bench_ba_config(), device, card)
+    phase_done("12a (the full BA over 1, 2 and 4 edge shards)")
+    grouped = grouped_streams(pds, wire_config(fused_chunk=1), device, card)
+    phase_done("12b (four streams in two groups)")
+    orb_grid(scene, device, card)
+    phase_done("12c (ORB and the grid)")
     if disk["not_run"]:
         print(f"NOT RUN (a host library is missing; not passed): "
               f"{', '.join(disk['not_run'])}")
@@ -1829,6 +2056,7 @@ def main() -> int:
         "launches_disk_path": disk["cli_launches"],
         "launches_disk_fused_path": disk["fused_launches"],
         "launches_probe": probe["launches"],
+        "launches_grouped_streams_path": grouped["launches"],
         "streams": N_STREAMS,
         "max_abs_err": max_err,
         "max_abs_err_batched": err_batched,

@@ -4,7 +4,10 @@ native C++ reader with its prefetch thread (against the port's Python
 reader: rgb within 1e-5, depth, flow and mask at atol = 0, as
 tests/test_pipeline_e2e.py:337-350 holds the JAX one; and against the JAX
 native library's decode of the same files), the PNG cases of
-tests/test_native_loader.py, a regression test of the prefetch race that
+tests/test_native_loader.py, the port's PNG decoder on zlib alone against
+the JAX library's libpng on every colour type, depth, row filter and
+interlace libpng accepts, against PIL on the files PIL writes, and on the
+files libpng refuses, a regression test of the prefetch race that
 the JAX loader has (ROADMAP Queue 3), and the CLI's positional form
 `run.main([settings.yaml, sequence_dir, ...])` against the JAX CLI on the
 same written sequence.
@@ -24,6 +27,8 @@ TestOnDiskSequence).
 import ctypes
 import json
 import shutil
+import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -65,15 +70,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _missing_header(name: str, dirs=("/usr/include", "/usr/local/include",
+                                      "/usr/include/libpng16")) -> bool:
+    return not any(Path(d, name).exists() for d in dirs)
+
+
 def _native_unavailable_reason() -> str | None:
-    """Why the loader cannot be built here, where the machine lacks a tool
-    or header it needs; None where it has them."""
+    """Why the port's loader cannot be built here, where the machine lacks
+    a tool or header it needs (g++ and zlib); None where it has them."""
     if shutil.which("g++") is None:
         return "g++ is not installed"
-    if not any(Path(d, "png.h").exists()
-               for d in ("/usr/include", "/usr/local/include",
-                         "/usr/include/libpng16")):
-        return "png.h (libpng's header) is not installed"
+    if _missing_header("zlib.h"):
+        return "zlib.h (zlib's header) is not installed"
     return None
 
 
@@ -91,7 +99,10 @@ def lib():
 @pytest.fixture(scope="module")
 def jax_lib(lib, tmp_path_factory):
     """The JAX package's library, built from native/loader.cpp into a
-    temporary directory."""
+    temporary directory; it links libpng, which the port's does not."""
+    if _missing_header("png.h"):
+        pytest.skip("the JAX package's loader needs png.h (libpng's "
+                    "header), which is not installed")
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_native, "_LIB",
                tmp_path_factory.mktemp("jax_native") / "libvdoloader.so")
@@ -232,6 +243,206 @@ def test_png_gray16(lib, png_dir):
     img = read_png_native(lib, str(root / "g16.png"))
     ref = (sc.depth[0] * 100).astype(np.uint16).astype(np.float32)
     np.testing.assert_allclose(img, ref, atol=0)
+
+
+def _crc_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
+
+
+def _filter_row(cur: np.ndarray, prior: np.ndarray, kind: int,
+                bpp: int) -> np.ndarray:
+    """One scanline under PNG filter `kind` (0-4), as an encoder filters
+    it: each byte minus its predictor from the unfiltered bytes."""
+    c, b = cur.astype(np.int32), prior.astype(np.int32)
+    a = np.concatenate([np.zeros(bpp, np.int32), c[:-bpp]])
+    up_left = np.concatenate([np.zeros(bpp, np.int32), b[:-bpp]])
+    if kind == 0:
+        pred = np.zeros_like(c)
+    elif kind == 1:
+        pred = a
+    elif kind == 2:
+        pred = b
+    elif kind == 3:
+        pred = (a + b) // 2
+    else:
+        p = a + b - up_left
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - up_left)
+        pred = np.where((pa <= pb) & (pa <= pc), a,
+                        np.where(pb <= pc, b, up_left))
+    return ((c - pred) % 256).astype(np.uint8)
+
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def encode_png(samples: np.ndarray, color: int, depth: int,
+               interlace: bool = False, palette=None, trns=None,
+               filter_type=None) -> bytes:
+    """A PNG written here, not by PIL, so that every colour type, depth,
+    filter and Adam7 can be tested: samples (H, W, channels) of raw values
+    (palette indices for color 3).  Row k of each pass takes filter
+    k mod 5 unless `filter_type` fixes one."""
+    H, W = samples.shape[:2]
+    ch = samples.shape[2]
+    bpp = max(1, ch * depth // 8)
+    raw = bytearray()
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        prior = None
+        for k, row in enumerate(sub):
+            flat = row.reshape(-1)
+            if depth == 16:
+                cur = flat.astype(">u2").view(np.uint8)
+            elif depth == 8:
+                cur = flat.astype(np.uint8)
+            else:
+                bits = ((flat[:, None] >> np.arange(depth - 1, -1, -1))
+                        & 1).astype(np.uint8)
+                cur = np.packbits(bits.reshape(-1))
+            prior = np.zeros_like(cur) if prior is None else prior
+            kind = k % 5 if filter_type is None else filter_type
+            raw += bytes([kind]) + _filter_row(cur, prior, kind,
+                                               bpp).tobytes()
+            prior = cur
+    out = b"\x89PNG\r\n\x1a\n" + _crc_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", W, H, depth, color, 0, 0, int(interlace)))
+    if palette is not None:
+        out += _crc_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _crc_chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes())
+    z = zlib.compress(bytes(raw), 6)
+    # the image data split over two IDAT chunks, as encoders may split it
+    out += _crc_chunk(b"IDAT", z[:len(z) // 2])
+    out += _crc_chunk(b"IDAT", z[len(z) // 2:])
+    return out + _crc_chunk(b"IEND", b"")
+
+
+# (name, colour type, depth, channels, palette entries)
+PNG_KINDS = [("gray1", 0, 1, 1, 0), ("gray2", 0, 2, 1, 0),
+             ("gray4", 0, 4, 1, 0), ("gray8", 0, 8, 1, 0),
+             ("gray16", 0, 16, 1, 0), ("ga8", 4, 8, 2, 0),
+             ("ga16", 4, 16, 2, 0), ("rgb8", 2, 8, 3, 0),
+             ("rgb16", 2, 16, 3, 0), ("rgba8", 6, 8, 4, 0),
+             ("rgba16", 6, 16, 4, 0), ("pal1", 3, 1, 1, 2),
+             ("pal2", 3, 2, 1, 4), ("pal4", 3, 4, 1, 16),
+             ("pal8", 3, 8, 1, 200)]
+
+
+def _expected(samples, color, depth, palette, trns):
+    """What the libpng path returns for these samples: raw values, gray
+    below 8 bits scaled to 0..255, palette indices looked up (RGBA where
+    there is a tRNS chunk)."""
+    if color == 3:
+        pal = np.zeros((256, 4), np.float32)
+        pal[:, 3] = 255
+        pal[:len(palette), :3] = palette
+        if trns is not None:
+            pal[:len(trns), 3] = trns
+        return pal[samples[..., 0]][..., :3 if trns is None else 4]
+    out = samples.astype(np.float32)
+    if depth < 8:
+        out = out * (255 // (2 ** depth - 1))
+    return out[..., 0] if out.shape[-1] == 1 else out
+
+
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("name,color,depth,ch,n_pal", PNG_KINDS)
+def test_png_decode_every_kind(lib, jax_lib, tmp_path, name, color, depth,
+                               ch, n_pal, interlace):
+    """Every colour type and depth the libpng path accepts, each row
+    filter, plain and Adam7 (odd sizes leave passes short or empty):
+    decoded as the values written, and as the JAX package's libpng reader
+    decodes the same file."""
+    rng = np.random.default_rng(depth * 10 + color)
+    H, W = 13, 21
+    hi = n_pal if color == 3 else 2 ** depth
+    samples = rng.integers(0, hi, (H, W, ch)).astype(np.uint16)
+    palette = trns = None
+    if color == 3:
+        palette = rng.integers(0, 256, (n_pal, 3))
+    for with_trns in ((False, True) if color == 3 else (False,)):
+        if with_trns:
+            trns = rng.integers(0, 256, max(n_pal // 2, 1))
+        path = tmp_path / f"{name}_{int(interlace)}_{int(with_trns)}.png"
+        path.write_bytes(encode_png(samples, color, depth, interlace,
+                                    palette, trns))
+        got = read_png_native(lib, str(path))
+        want = _expected(samples, color, depth, palette, trns)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, jax_native.read_png_native(jax_lib, str(path)))
+
+
+def test_png_pil_written_files_equal_pil(lib, tmp_path):
+    """PNGs that PIL writes, in each mode it writes (1-bit, 8- and 16-bit
+    gray, gray+alpha, RGB, RGBA, palette with and without transparency,
+    and a 4-bit palette), decoded as PIL decodes them."""
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    H, W = 37, 53
+    rgba = rng.integers(0, 256, (H, W, 4), dtype=np.uint8)
+    images = {
+        "1": Image.fromarray(rng.random((H, W)) > 0.5),
+        "L": Image.fromarray(rgba[..., 0]),
+        "I;16": Image.fromarray(rng.integers(0, 65536, (H, W),
+                                             dtype=np.uint16)),
+        "LA": Image.fromarray(rgba[..., :2], "LA"),
+        "RGB": Image.fromarray(rgba[..., :3]),
+        "RGBA": Image.fromarray(rgba),
+        "P": Image.fromarray(rgba[..., :3]).quantize(200),
+    }
+    for mode, im in images.items():
+        path = tmp_path / f"{mode.replace(';', '_')}.png"
+        im.save(path)
+        got = read_png_native(lib, str(path))
+        ref = Image.open(path)
+        if mode == "P":
+            ref = ref.convert("RGB")
+        want = np.asarray(ref).astype(np.float32)
+        if mode == "1":
+            want = want * 255
+        np.testing.assert_array_equal(got, want)
+    pal = images["P"]
+    pal.save(tmp_path / "pt.png", transparency=bytes(range(0, 200, 2)))
+    pal.save(tmp_path / "p4.png", bits=4)
+    for name, conv in (("pt.png", "RGBA"), ("p4.png", "RGB")):
+        got = read_png_native(lib, str(tmp_path / name))
+        want = np.asarray(Image.open(tmp_path / name).convert(conv))
+        np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+def test_png_refusals_match_libpng(lib, jax_lib, tmp_path):
+    """What the libpng path refuses, the port's decoder refuses with the
+    same error return: a bad signature, a bad IHDR CRC, a depth the colour
+    type does not allow, a palette image without PLTE, a row filter of 5,
+    truncated image data, and a missing file."""
+    rng = np.random.default_rng(3)
+    good = encode_png(rng.integers(0, 256, (5, 6, 3)), 2, 8)
+    bad = {
+        "sig.png": b"\x89PNX" + good[4:],
+        "crc.png": good[:29] + bytes([good[29] ^ 1]) + good[30:],
+        "depth.png": encode_png(rng.integers(0, 16, (5, 6, 3)), 2, 4),
+        "noplte.png": encode_png(rng.integers(0, 4, (5, 6, 1)), 3, 8),
+        "filter.png": encode_png(rng.integers(0, 256, (5, 6, 3)), 2, 8,
+                                 filter_type=5),
+        "short.png": encode_png(rng.integers(0, 256, (5, 6, 3)), 2, 8)[:60],
+    }
+    for name, data in bad.items():
+        (tmp_path / name).write_bytes(data)
+    for name in [*bad, "missing.png"]:
+        path = str(tmp_path / name)
+        for L, reader in ((lib, read_png_native),
+                          (jax_lib, jax_native.read_png_native)):
+            with pytest.raises(IOError):
+                reader(L, path)
+            w = ctypes.c_int()
+            assert L.vdo_png_info(path.encode(), w, w, w, w) == -1, name
 
 
 def test_prefetch_race_regression(lib, roots):

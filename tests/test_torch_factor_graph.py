@@ -380,11 +380,20 @@ def test_lm_solve_schur(chain):
         assert int(it["stats"][name]["n"]) == int(ij["stats"][name]["n"])
 
 
-def test_lm_params_match_and_refuse_sharding():
+def test_lm_params_match_and_axis_name_is_inert(mixed):
+    """The fields of both packages' LMParams are the same.  axis_name, the
+    original's shard_map axis, changes nothing in the port (a device list
+    shards a solve, tests/test_torch_sharded.py): the solve with it set is
+    the solve without it, bit for bit."""
     assert ([(f.name, f.default) for f in dataclasses.fields(T.LMParams)]
             == [(f.name, f.default) for f in dataclasses.fields(J.LMParams)])
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        T.LMParams(axis_name="ba")
+    tg, tv = mixed[2], mixed[3]
+    kw = dict(iters=2, cg_iters=8)
+    v0, i0 = T.lm_solve(tg, tv, T.LMParams(**kw))
+    v1, i1 = T.lm_solve(tg, tv, T.LMParams(axis_name="ba", **kw))
+    assert torch.equal(v0.poses, v1.poses)
+    assert torch.equal(v0.points, v1.points)
+    assert torch.equal(i0["cost"], i1["cost"])
 
 
 def test_upload_and_fetch_roundtrip():

@@ -6,8 +6,11 @@ S-stream system on the card against the same on the CPU, the host Tracker
 (System mode "reference") on the card against the same on the CPU with
 one FAST launch per frame (none with grid-sampled keypoints) and its
 one-copy host reads, one frame of a barrel-distorted bench scene stepped
-from one state on the card and on the CPU, and both BA solvers on the
-card against the same solve on the CPU.  Every test here skips without a
+from one state on the card and on the CPU, both BA solvers on the card
+against the same solve on the CPU, the edge-sharded full solve and
+full_ba_inplace over ["cuda:0"] * n, and S = 2 streams spread over
+["cuda:0", "cuda:0"] (two FAST launches per frame) against one group on
+the card.  Every test here skips without a
 CUDA device.  This file imports no JAX, so it runs on a machine without
 it:
 
@@ -306,11 +309,43 @@ def test_multistream_system_on_card_matches_cpu_and_launches_once():
     for mc, mg in zip(maps["cpu"], maps["cuda"]):
         assert mc.sem_label == mg.sem_label
         for Tc, Tg in zip(mc.cam_pose, mg.cam_pose):
-            E = np.linalg.inv(Tc.astype(np.float64)) @ Tg.astype(np.float64)
-            s = np.array([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0],
-                          E[1, 0] - E[0, 1]])
-            dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
-            assert np.linalg.norm(E[:3, 3]) < 1e-3 and dr < 0.01
+            assert _pose_gap_ok(Tc, Tg)
+
+
+def _pose_gap_ok(Tc, Tg):
+    """Tg within 1e-3 m and 0.01 deg of Tc (the step's card-vs-CPU
+    bounds)."""
+    E = np.linalg.inv(Tc.astype(np.float64)) @ Tg.astype(np.float64)
+    s = np.array([E[2, 1] - E[1, 2], E[0, 2] - E[2, 0], E[1, 0] - E[0, 1]])
+    dr = np.degrees(np.arcsin(min(0.5 * np.linalg.norm(s), 1.0)))
+    return np.linalg.norm(E[:3, 3]) < 1e-3 and dr < 0.01
+
+
+def test_grouped_streams_on_card():
+    """S = 2 over ["cuda:0", "cuda:0"]: two groups of one stream, one FAST
+    launch per group per frame, each stream within the card-vs-CPU bounds
+    of the one-group run on the card."""
+    from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+
+    scenes = [make_scene(num_frames=6, width=320, height=240, num_objects=2,
+                         seed=s) for s in (3, 9)]
+    cfg = _small_cfg()
+    cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, **WIRES["tpu_fast"]))
+    dss = [SyntheticDataset(s, depth_map_factor=1.0, bf=40.0) for s in scenes]
+    maps = {}
+    for groups, devices in ((1, ["cuda:0"]), (2, ["cuda:0", "cuda:0"])):
+        msys = MultiStreamSystem(cfg, n_streams=2, enable_local_ba=False,
+                                 devices=devices)
+        assert len(msys.groups) == groups
+        before = KERNEL.launches
+        msys.run(dss)
+        assert KERNEL.launches - before == groups * len(dss[0])
+        maps[groups] = msys.maps
+    for m1, m2 in zip(maps[1], maps[2]):
+        assert m1.sem_label == m2.sem_label
+        for T1, T2 in zip(m1.cam_pose, m2.cam_pose):
+            assert _pose_gap_ok(T1, T2)
 
 
 def _reference_run(cfg, ds, dev):
@@ -468,12 +503,14 @@ def tracked_map():
     return sysm.map, cfg
 
 
-def _solve_both(solve, g, v):
+def _solve_both(solve, g, v, solve_card=None):
+    """`solve` on the CPU against `solve_card` (default: `solve`) on the
+    card, from the same numpy graph."""
     from vdo_slam_tpu_torch.backend.factor_graph import fetch, upload
 
     out = {}
-    for dev in ("cpu", "cuda"):
-        vv, info = solve(*upload(g, v, dev))
+    for dev, fn in (("cpu", solve), ("cuda", solve_card or solve)):
+        vv, info = fn(*upload(g, v, dev))
         out[dev] = fetch((vv.poses, vv.points, info["cost0"], info["cost"]))
     (pc, xc, c0c, cc), (pg, xg, c0g, cg) = out["cpu"], out["cuda"]
     np.testing.assert_allclose(pg, pc, atol=1e-4)
@@ -504,3 +541,35 @@ def test_full_solve_on_card_matches_cpu(tracked_map):
     assert meta.n_motions >= 2
     p = scaled_lm_params(cfg, g.obs_w.shape[0])
     _solve_both(lambda gg, vv: lm_solve_chunked(gg, vv, p, chunk=3), g, v)
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_full_solve_on_card(tracked_map, n_dev):
+    """The edge-sharded chunked solve over ["cuda:0"] * n_dev on the card
+    against the one-device chunked solve on the CPU (the bounds above); then
+    full_ba_inplace over the same list against the one-device call on the
+    card, within the JAX package's sharded bounds (cost within 10 %, poses
+    within 1e-3)."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.builders import build_full_graph
+    from vdo_slam_tpu_torch.backend.factor_graph import (
+        lm_solve_chunked, lm_solve_sharded_chunked)
+    from vdo_slam_tpu_torch.backend.full_ba import (full_ba_inplace,
+                                                    scaled_lm_params)
+
+    m, cfg = tracked_map
+    g, v, _ = build_full_graph(m, cfg)
+    p = scaled_lm_params(cfg, g.obs_w.shape[0])
+    devices = ["cuda:0"] * n_dev
+    _solve_both(lambda gg, vv: lm_solve_chunked(gg, vv, p, chunk=3), g, v,
+                lambda gg, vv: lm_solve_sharded_chunked(gg, vv, p, devices,
+                                                        chunk=3))
+    m1, m2 = copy.deepcopy(m), copy.deepcopy(m)
+    r1 = full_ba_inplace(m1, cfg, device="cuda")
+    r2 = full_ba_inplace(m2, cfg, device="cuda", devices=devices)
+    assert r2["iters_run"] == r1["iters_run"]
+    assert abs(r2["cost"] - r1["cost"]) <= 0.1 * max(r1["cost"], 1e-6)
+    gap = max(float(np.abs(a.astype(np.float64) - b).max())
+              for a, b in zip(m2.cam_pose_rf, m1.cam_pose_rf))
+    assert gap < 1e-3

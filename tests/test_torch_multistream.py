@@ -34,8 +34,9 @@ from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
 from vdo_slam_tpu_torch.parallel import (MultiStreamSystem, StreamState,
                                          make_frame_step,
                                          make_multistream_step,
-                                         make_stream_state, stack_states,
-                                         state_from_numpy)
+                                         make_stream_state, shard_streams,
+                                         stack_states, state_from_numpy,
+                                         stream_groups)
 from vdo_slam_tpu_torch.parallel.multistream import _flatten
 from vdo_slam_tpu_torch.pipeline import System
 from vdo_slam_tpu_torch.pipeline import draws as draws_mod
@@ -145,14 +146,120 @@ class TestMultiStreamSystem:
             assert (tmp_path / f"stream_{s}"
                     / "initial_stereo_new.txt").exists()
 
-    def test_more_than_one_device_raises(self, small_runs):
-        with pytest.raises(NotImplementedError, match="torch.distributed"):
-            MultiStreamSystem(small_runs["cfg"], n_streams=2,
-                              devices=["cpu", "cpu"])
-        one = MultiStreamSystem(small_runs["cfg"], n_streams=2,
-                                devices=["cpu"], enable_local_ba=False)
-        assert one.device.type == "cpu"
+    def test_devices_make_one_group_per_divisor(self, small_runs):
+        """n_dev, the largest divisor of S that is at most len(devices)
+        (the JAX package's rule): that many groups, each a contiguous block
+        of streams on its device, with a step and a state of its own."""
+        cfg = small_runs["cfg"]
+        two = MultiStreamSystem(cfg, n_streams=2, devices=["cpu", "cpu"],
+                                enable_local_ba=False)
+        assert [list(g.streams) for g in two.groups] == [[0], [1]]
+        assert [g.trackers for g in two.groups] == [two.trackers[:1],
+                                                    two.trackers[1:]]
+        assert two.groups[0].step is not two.groups[1].step
+        assert all(g.states.slot_H.shape[0] == 1 for g in two.groups)
+        one = MultiStreamSystem(cfg, n_streams=2, devices=["cpu"],
+                                enable_local_ba=False)
+        assert one.device.type == "cpu" and len(one.groups) == 1
         assert not hasattr(one.trackers[0], "state")
+        odd = MultiStreamSystem(cfg, n_streams=3, devices=["cpu"] * 2,
+                                enable_local_ba=False)
+        assert [list(g.streams) for g in odd.groups] == [[0, 1, 2]]
+        cpu = torch.device("cpu")
+        assert [list(r) for _, r in stream_groups(6, [cpu] * 4)] == [
+            [0, 1], [2, 3], [4, 5]]
+        with pytest.raises(ValueError, match="empty"):
+            MultiStreamSystem(cfg, n_streams=2, devices=[])
+
+
+@pytest.fixture(scope="module")
+def two_device_runs():
+    """S = 2 on two 96x64 scenes under tpu_fast's wire, window BA every 2
+    frames from frame 3, drains of 3 frames: on one device, and over
+    ["cpu", "cpu"], one stream per device."""
+    _, cfg = tiny_pair(window_size=4, overlap_size=2, fused_drain_chunks=3,
+                       **WIRE)
+    dss = [SyntheticDataset(make_scene(num_frames=7, width=96, height=64,
+                                       num_objects=1, seed=s),
+                            depth_map_factor=1.0, bf=40.0) for s in (1, 2)]
+    runs = {}
+    for name, devices in (("one", ["cpu"]), ("two", ["cpu", "cpu"])):
+        msys = MultiStreamSystem(cfg, n_streams=2, enable_local_ba=True,
+                                 devices=devices)
+        launches = KERNEL.launches
+        runs[name] = (msys, msys.run(dss), KERNEL.launches - launches)
+    return runs
+
+
+def test_two_devices_equal_one_device(two_device_runs):
+    """Each stream over two devices against the same stream in the
+    one-device batch of two: every archived pose entry within 5e-6, the
+    same labels, reports, estimates and window solves.  The batched body
+    under vmap rounds differently for a batch of one than of two, and the
+    gap grows by ~5e-7 a frame: 2.86e-6 at frame 5 here, with or without
+    the window solves (a stream against its solo run: 2.5e-6)."""
+    (one, reps1, l1), (two, reps2, l2) = (two_device_runs["one"],
+                                          two_device_runs["two"])
+    assert len(one.groups) == 1 and len(two.groups) == 2
+    assert l1 == l2 == 0      # the CPU runs the kernel's plain version
+    m1, m2 = one.metrics()["per_stream"], two.metrics()["per_stream"]
+    n = len(reps1[0])
+    for s in range(2):
+        a, b = two.maps[s], one.maps[s]
+        assert a.num_frames == b.num_frames == n == 6
+        assert [r["frame_id"] for r in reps2[s]] == list(range(n))
+        np.testing.assert_allclose(np.stack(a.cam_pose), np.stack(b.cam_pose),
+                                   atol=5e-6)
+        np.testing.assert_allclose(np.stack(a.cam_pose_rf),
+                                   np.stack(b.cam_pose_rf), atol=5e-6)
+        assert a.sem_label == b.sem_label and a.rm_label == b.rm_label
+        assert m2[s]["n_obj_estimates"] == m1[s]["n_obj_estimates"]
+        assert len(two.trackers[s].ba_health) == len(
+            one.trackers[s].ba_health) == 2
+
+
+def test_multistream_step_over_two_devices():
+    """make_multistream_step over ["cpu", "cpu"]: the stacked state and
+    inputs split by shard_streams, one batched step per device, the fleet
+    gathered on the first; each stream within 2.5e-6 of the one-device
+    step, equal inlier counts, the same fleet."""
+    _, cfg = tiny_pair()
+    dss = [SyntheticDataset(make_scene(num_frames=3, width=96, height=64,
+                                       num_objects=1, seed=s),
+                            depth_map_factor=1.0, bf=40.0) for s in (1, 2)]
+    devices = ["cpu", "cpu"]
+    one = make_multistream_step(cfg, "cpu")
+    two = make_multistream_step(cfg, devices=devices)
+    stagers = [FusedTracker(cfg, device="cpu", build_step=False)
+               for _ in dss]
+    s1 = stack_states([make_stream_state(cfg, "cpu") for _ in dss])
+    s2 = shard_streams(s1, devices)
+    assert [x.slot_H.shape[0] for x in s2] == [1, 1]
+    for f in range(3):
+        per = []
+        for t, ds in zip(stagers, dss):
+            fd = ds[f]
+            per.append({"rgb": torch.from_numpy(fd.rgb),
+                        "depth_raw": torch.from_numpy(fd.depth_raw),
+                        "flow": torch.from_numpy(fd.flow),
+                        "seg": torch.from_numpy(fd.mask.astype(np.int32)),
+                        "T_cw_gt": torch.from_numpy(t._gt_pose(
+                            fd.pose_gt_raw))})
+        inputs = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        u = {k: v.expand((2,) + v.shape)
+             for k, v in stagers[0].frame_draws(f).items()}
+        s1, m1, f1 = one(s1, inputs, u, f > 0)
+        s2, m2, f2 = two(s2, shard_streams(inputs, devices),
+                         shard_streams(u, devices), f > 0)
+        for k in range(2):
+            np.testing.assert_allclose(s2[k].frame.T_cw[0].numpy(),
+                                       s1.frame.T_cw[k].numpy(), atol=2.5e-6)
+            assert int(m2[k]["n_inlier"][0]) == int(m1["n_inlier"][k])
+        assert int(f2["total_objects"]) == int(f1["total_objects"])
+        for key in ("mean_t_rpe", "mean_r_rpe"):
+            assert float(f2[key]) == pytest.approx(float(f1[key]), abs=1e-6)
+    with pytest.raises(ValueError, match="split evenly"):
+        shard_streams(inputs, ["cpu"] * 3)
 
 
 def test_pipelined_drain_returns_frames_in_batches():
@@ -320,9 +427,10 @@ def test_batched_step_from_the_jax_stacked_state(jax_pair):
     stagers = MultiStreamSystem(cfg, n_streams=2, enable_local_ba=False,
                                 device="cpu")
     for i in range(n):       # the staging state (GT origin, gt_sems)
-        staged = stagers._stage([d[i] for d in jax_pair["pdss"]])
+        staged = stagers._stage([d[i] for d in jax_pair["pdss"]])[0]
     staged.pop("_gts_host")
-    states, vecs = psys.step(states, staged, psys._frame_draws(n - 1), True)
+    states, vecs = psys.groups[0].step(states, staged,
+                                       psys._frame_draws(n - 1)[0], True)
     for s in range(2):
         T_wc_jax = jax_pair["jsys"].maps[s].cam_pose[-1]
         dt, dr = pose_gap(np.linalg.inv(states.frame.T_cw[s].numpy()),

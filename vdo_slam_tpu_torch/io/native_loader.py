@@ -2,9 +2,10 @@
 vdo_slam_tpu/io/native_loader.py.
 
 Builds the port's own copy of the loader, `csrc/loader.cpp` (the JAX
-package's native/loader.cpp with its prefetch race fixed), with g++ and
-libpng/zlib into `vdo_slam_tpu_torch/_build/` at first use, and again when
-the source is newer than the library.  NativeSequenceDataset is a drop-in
+package's native/loader.cpp with its prefetch race fixed, and a PNG decoder
+on zlib alone where the original links libpng), with g++ and zlib into
+`vdo_slam_tpu_torch/_build/` at first use, and again when the source is
+newer than the library.  NativeSequenceDataset is a drop-in
 replacement for io.dataset.SequenceDataset with decode in native code and a
 background prefetch thread, replacing the reference demo driver's
 synchronous cv::imread loop (example/vdo_slam.cc:98-141).
@@ -29,7 +30,7 @@ _SRC = _PKG / "csrc" / "loader.cpp"
 _BUILD_DIR = _PKG / "_build"
 _LIB = _BUILD_DIR / "libvdoloader.so"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
-GXX_LIBS = ("-lpng", "-lz", "-lpthread")
+GXX_LIBS = ("-lz", "-lpthread")
 
 # why the last build_native_loader() call returned None ("" after success)
 BUILD_LOG = ""

@@ -1,3 +1,3 @@
-from . import fast, fast_cuda, frontend, image, select
+from . import fast, fast_cuda, frontend, grid, image, orb, select
 
-__all__ = ["fast", "fast_cuda", "frontend", "image", "select"]
+__all__ = ["fast", "fast_cuda", "frontend", "grid", "image", "orb", "select"]

@@ -15,8 +15,11 @@ states and inputs carry a leading S, the wire of all streams is decoded
 in one pass, the FAST kernel scores the pyramids of all streams in ONE
 launch (S in the kernel's grid), and the rest of the body runs once under
 `torch.func.vmap`.  The draws come in as tensors (pipeline/draws.py).
-Spreading streams over several devices (the JAX package's Mesh and
-NamedSharding) is not ported: one device holds all S.
+Where the JAX package shards the S streams over a mesh (Mesh and
+NamedSharding), make_multistream_step takes a list of devices: each holds
+a contiguous block of the streams and runs the batched step on it, one
+process driving them all (vdo_slam_tpu_torch/devices.py says why), and the
+fleet reductions are gathered onto the first device.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import VDOConfig
+from ..devices import device_list, on_device
 from ..ops import frontend, select
 from ..pipeline import stages
 from ..pipeline.draws import FrameDraws, UniformDraws
@@ -476,25 +480,79 @@ def make_scan_probe(cfg: VDOConfig, device="cuda",
     return ScanProbe(cfg, device, n_iters)
 
 
-def make_multistream_step(cfg: VDOConfig, device="cuda"):
-    """The step for S streams on one device (multistream.py:491-520).
+def shard_streams(tree, devices) -> list:
+    """A stacked tree (a StreamState, or a dict of tensors, with a leading
+    S) as one tree per device: device k holds the k-th contiguous block of
+    S / len(devices) streams (the JAX package's shard_tree over a mesh of
+    `devices`).  S must be a multiple of len(devices)."""
+    devices = device_list(devices)
+    n = len(devices)
+    leaves = _flatten(tree) if isinstance(tree, StreamState) else None
+    S = (leaves or list(tree.values()))[0].shape[0]
+    if S % n:
+        raise ValueError(f"{S} streams do not split evenly over {n} devices")
+    per = S // n
+
+    def block(x, k):
+        return x[k * per:(k + 1) * per].to(devices[k])
+
+    if leaves is not None:
+        return [_unflatten([block(x, k) for x in leaves]) for k in range(n)]
+    return [{key: block(x, k) for key, x in tree.items()} for k in range(n)]
+
+
+def _gather(parts: list[Tensor], device) -> Tensor:
+    """Per-device tensors of streams as one, on `device`."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([x.to(device) for x in parts])
+
+
+def make_multistream_step(cfg: VDOConfig, device="cuda", devices=None):
+    """The step for S streams (multistream.py:491-520).
 
     Returns pstep(states, inputs, uniforms, initialized) -> (states,
     metrics, fleet): `states` a StreamState with a leading S
     (`stack_states`), `inputs` the dense inputs with a leading S,
     `uniforms` the draws of pipeline/draws.py:frame_uniforms with a leading
     S, `initialized` one host bool for all streams.  `metrics` holds every
-    stream's; `fleet` the cross-stream reductions, plain means and sums on
-    the one device.
+    stream's; `fleet` the cross-stream reductions: the means of t_rpe and
+    r_rpe and the sum of n_objects.
+
+    With `devices` (a list, which may repeat a device) the streams are
+    spread over them as the JAX package spreads them over its mesh: pstep
+    then takes and returns `states`, `inputs`, `uniforms` and `metrics` as
+    lists with one entry per device, device k's block of streams on
+    devices[k] (`shard_streams` splits a stacked tree so), runs one batched
+    step per device, and gathers every stream's metrics onto devices[0]
+    for `fleet`.  Without, everything lies on `device`.
     """
-    step = _make_batched_step(cfg, device, packed=False,
-                              finish=lambda state, metrics: metrics)
+    def metrics_only(state, metrics):
+        return metrics
+
+    targets = ([torch.device(device)] if devices is None
+               else device_list(devices))
+    steps = [_make_batched_step(cfg, d, packed=False, finish=metrics_only)
+             for d in targets]
 
     def pstep(states, inputs, uniforms, initialized: bool):
-        states, metrics = step(states, inputs, uniforms, initialized)
-        fleet = {"mean_t_rpe": metrics["t_rpe"].mean(),
-                 "mean_r_rpe": metrics["r_rpe"].mean(),
-                 "total_objects": metrics["n_objects"].sum()}
+        if devices is None:
+            states, inputs, uniforms = [states], [inputs], [uniforms]
+        out = []
+        for d, step, st, inp, u in zip(targets, steps, states, inputs,
+                                       uniforms):
+            with on_device(d):
+                out.append(step(st, inp, u, initialized))
+        states = [o[0] for o in out]
+        metrics = [o[1] for o in out]
+        fleet = {"mean_t_rpe": _gather([m["t_rpe"] for m in metrics],
+                                       targets[0]).mean(),
+                 "mean_r_rpe": _gather([m["r_rpe"] for m in metrics],
+                                       targets[0]).mean(),
+                 "total_objects": _gather([m["n_objects"] for m in metrics],
+                                          targets[0]).sum()}
+        if devices is None:
+            return states[0], metrics[0], fleet
         return states, metrics, fleet
 
     return pstep

@@ -4,9 +4,9 @@ port of vdo_slam_tpu/parallel/multisystem.py.
 Every stream has its own append-only MapState archive, window-BA triggers
 (Tracking.cc:1168-1183), metric reports and result files, so S-stream mode
 behaves like S independent single-stream systems, while the per-frame
-device work of all streams is ONE batched step: one (S, wire_len) upload,
-one wire decode, one FAST kernel launch, one mapped body, one (S, n)
-output copy.
+device work of all streams on a device is ONE batched step: one
+(S, wire_len) upload, one wire decode, one FAST kernel launch, one mapped
+body, one (S, n) output copy.
 
 Each stream owns a FusedTracker for its HOST half (staging of GT, archive,
 window-BA trigger, reports), built without a step or a device state of its
@@ -15,14 +15,27 @@ frames archives: the same draws (a function of cfg.seed and the frame
 index) and the same archive code; tests/test_torch_multistream.py holds
 them together.
 
-Against the JAX package: one device holds all S streams (no Mesh, nothing
-is sharded; `devices` with more than one entry raises); the drainer and
-uploader threads are replaced by asynchronous pinned copies and CUDA
-events on the calling thread, as in pipeline/fused.py.
+Streams over several devices (`devices`): the JAX package spreads the S
+streams over a mesh of the largest divisor of S that is at most the number
+of devices, with every stream's data sharded over it (multisystem.py:
+62-76).  Here the same divisor n_dev splits the streams into n_dev
+contiguous groups of S / n_dev, and group k's stacked state, upload,
+batched step (one FAST launch) and output copy all live on devices[k]; one
+process drives every group, as one JAX process drives the mesh
+(vdo_slam_tpu_torch/devices.py says why not a process group).  Each
+stream's window BA runs on its group's device.  The list may repeat a
+device: one card (or the CPU) then runs the groups one after another.
+devices=None takes every visible card on a CUDA `device` (the JAX
+package's jax.devices()), else [device].
+
+Against the JAX package besides: the drainer and uploader threads are
+replaced by asynchronous pinned copies and CUDA events on the calling
+thread, as in pipeline/fused.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from pathlib import Path
@@ -31,7 +44,8 @@ import numpy as np
 import torch
 
 from ..config import VDOConfig
-from .multistream import (_make_batched_step, make_stream_state,
+from ..devices import device_list, on_device
+from .multistream import (StreamState, _make_batched_step, make_stream_state,
                           stack_states)
 
 
@@ -45,8 +59,33 @@ def make_multistream_packed_step(cfg: VDOConfig, device="cuda"):
     return _make_batched_step(cfg, device, packed=True, finish=pack_outputs)
 
 
+def stream_groups(n_streams: int, devices) -> list[tuple[torch.device,
+                                                          range]]:
+    """(device, streams) per group: n_dev, the largest divisor of
+    n_streams that is at most len(devices) (the JAX package's rule,
+    multisystem.py:71-74), contiguous groups of n_streams / n_dev, group k
+    on devices[k]."""
+    n_dev = max(d for d in range(1, len(devices) + 1) if n_streams % d == 0)
+    per = n_streams // n_dev
+    return [(devices[k], range(k * per, (k + 1) * per))
+            for k in range(n_dev)]
+
+
+@dataclasses.dataclass
+class _Group:
+    """The streams of one device: their host trackers, their batched step
+    and their stacked state, all on `device`."""
+
+    device: torch.device
+    streams: range
+    trackers: list
+    step: object
+    states: StreamState
+
+
 class MultiStreamSystem:
-    """S end-to-end pipelines on one device.
+    """S end-to-end pipelines over a list of devices (one group of streams
+    per device; see the module docstring).
 
     datasets: one dataset per stream (lengths may differ; the run stops at
     the shortest).
@@ -56,36 +95,35 @@ class MultiStreamSystem:
                  enable_local_ba: bool = True, devices=None, device="cuda"):
         from ..pipeline.fused import FusedTracker
 
-        if devices is not None:
-            if len(devices) > 1:
-                raise NotImplementedError(
-                    f"MultiStreamSystem(devices={list(devices)}): spreading "
-                    f"streams over several devices (the JAX package's Mesh "
-                    f"and NamedSharding) is not ported; it waits for the "
-                    f"torch.distributed work.  One device holds all streams")
-            device = devices[0]
         self.cfg = cfg
         self.S = n_streams
-        self.device = torch.device(device)
+        self.groups: list[_Group] = []
         # one host-side tracker per stream: staging, archive, window-BA
         # trigger, reports; none builds a step or a device state
-        self.trackers = [FusedTracker(cfg, device=self.device,
-                                      build_step=False)
-                         for _ in range(n_streams)]
-        self.step = make_multistream_packed_step(cfg, self.device)
+        self.trackers = []
+        for dev, streams in stream_groups(n_streams,
+                                          device_list(devices, device)):
+            trackers = [FusedTracker(cfg, device=dev, build_step=False)
+                        for _ in streams]
+            self.trackers += trackers
+            states = stack_states([make_stream_state(cfg, dev)
+                                   for _ in streams])
+            self.groups.append(_Group(
+                dev, streams, trackers,
+                make_multistream_packed_step(cfg, dev), states))
+        self.device = self.groups[0].device
         if enable_local_ba:
             from ..backend.window_ba import local_ba_inplace
 
-            dev = self.device
-            for t in self.trackers:
-                t.local_ba_hook = (
-                    lambda m, n_frames=None: local_ba_inplace(
-                        m, cfg, n_frames=n_frames, device=dev))
-        self.states = stack_states([make_stream_state(cfg, self.device)
-                                    for _ in range(n_streams)])
+            for g in self.groups:
+                for t in g.trackers:
+                    t.local_ba_hook = (
+                        lambda m, n_frames=None, dev=g.device:
+                        local_ba_inplace(m, cfg, n_frames=n_frames,
+                                         device=dev))
         self.initialized = False
         self.frame_id = 0
-        # frames whose output copy is queued but not archived yet
+        # frames whose output copies are queued but not archived yet
         self._pending: deque = deque()
         self.drain_every = max(int(cfg.tracking.fused_drain_chunks), 1)
 
@@ -93,52 +131,67 @@ class MultiStreamSystem:
     def maps(self):
         return [t.map for t in self.trackers]
 
-    def _stage(self, fds) -> dict:
-        """One stacked (S, wire_len) packed upload for all streams."""
-        lead = self.trackers[0]
-        gts = [t._gt_pose(fd.pose_gt_raw)
-               for t, fd in zip(self.trackers, fds)]
-        sems = [t._stage_gt_sems(fd) for t, fd in zip(self.trackers, fds)]
-        return {
-            "packed": lead._put(np.stack([lead.wire(fd) for fd in fds]),
-                                np.int16),
-            "T_cw_gt": lead._put(np.stack(gts), np.float32),
-            "gt_sems": lead._put(np.stack(sems), np.int32),
-            "_gts_host": gts,
-        }
+    def _stage(self, fds) -> list[dict]:
+        """Per group, one stacked (S / n_dev, wire_len) packed upload of its
+        streams to its device."""
+        out = []
+        for g in self.groups:
+            lead = g.trackers[0]
+            mine = [fds[s] for s in g.streams]
+            gts = [t._gt_pose(fd.pose_gt_raw)
+                   for t, fd in zip(g.trackers, mine)]
+            sems = [t._stage_gt_sems(fd) for t, fd in zip(g.trackers, mine)]
+            out.append({
+                "packed": lead._put(np.stack([lead.wire(fd) for fd in mine]),
+                                    np.int16),
+                "T_cw_gt": lead._put(np.stack(gts), np.float32),
+                "gt_sems": lead._put(np.stack(sems), np.int32),
+                "_gts_host": gts,
+            })
+        return out
 
-    def _frame_draws(self, fid: int) -> dict:
-        """Frame fid's draws for every stream.  The trackers share one
-        config, hence one seed, so all streams draw the same numbers, as a
-        solo tracker on each stream would: drawn once and broadcast."""
-        u = self.trackers[0].frame_draws(fid)
-        return {k: v.expand((self.S,) + tuple(v.shape)) for k, v in u.items()}
+    def _frame_draws(self, fid: int) -> list[dict]:
+        """Frame fid's draws, per group on its device.  The trackers share
+        one config, hence one seed, so all streams draw the same numbers,
+        as a solo tracker on each stream would: drawn once per group and
+        broadcast over its streams."""
+        out = []
+        for g in self.groups:
+            u = g.trackers[0].frame_draws(fid)
+            out.append({k: v.expand((len(g.streams),) + tuple(v.shape))
+                        for k, v in u.items()})
+        return out
 
-    def step_frame(self, fds, staged: dict | None = None,
+    def step_frame(self, fds, staged: list | None = None,
                    sync: bool = True) -> list:
-        """One frame of every stream in ONE batched step; archives per
-        stream and returns the per-stream reports.
+        """One frame of every stream, ONE batched step per group; archives
+        per stream and returns the per-stream reports.
 
         sync=False pipelines the output drain: the frame's (S, n) vectors
-        start an asynchronous copy, every `drain_every`-th frame the
-        accumulated frames are archived, and the return value is the list
-        of the frames archived by this call (a list of per-stream report
-        lists).  Call flush() at the end of the run."""
+        start an asynchronous copy per group, every `drain_every`-th frame
+        the accumulated frames are archived, and the return value is the
+        list of the frames archived by this call (a list of per-stream
+        report lists).  Call flush() at the end of the run."""
         t0 = time.perf_counter()
-        staged = dict(staged) if staged is not None else self._stage(fds)
-        gts = staged.pop("_gts_host")
+        staged = staged if staged is not None else self._stage(fds)
         fid = self.frame_id
-        self.states, vecs = self.step(self.states, staged,
-                                      self._frame_draws(fid),
-                                      self.initialized)
+        gts, vecs = [], []
+        for g, st, u in zip(self.groups, staged, self._frame_draws(fid)):
+            st = dict(st)
+            gts += st.pop("_gts_host")
+            with on_device(g.device):
+                g.states, v = g.step(g.states, st, u, self.initialized)
+            vecs.append(v)
         self.initialized = True
         self.frame_id += 1
         for t in self.trackers:
             t.frame_id = fid + 1
         if sync:
-            return self._archive_frame(fds, gts, fid, vecs.cpu().numpy(), t0)
-        host, done = self.trackers[0]._to_host(vecs)
-        self._pending.append((list(fds), gts, fid, host, done, t0))
+            return self._archive_frame(
+                fds, gts, fid, np.concatenate([v.cpu().numpy() for v in vecs]),
+                t0)
+        copies = [g.trackers[0]._to_host(v) for g, v in zip(self.groups, vecs)]
+        self._pending.append((list(fds), gts, fid, copies, t0))
         if len(self._pending) >= self.drain_every:
             return self._drain_batch()
         return []
@@ -148,15 +201,19 @@ class MultiStreamSystem:
                 for s, t in enumerate(self.trackers)]
 
     def _drain_batch(self) -> list[list[dict]]:
-        """Archive every pending frame, per stream, in frame order.  The
-        copies were queued in order on one stream, so the last frame's
-        event covers all."""
+        """Archive every pending frame, per stream, in frame order.  Each
+        group's copies were queued in order on its device's stream, so the
+        last frame's events cover all."""
         batch = list(self._pending)
         self._pending.clear()
-        if batch and batch[-1][4] is not None:
-            batch[-1][4].synchronize()
-        return [self._archive_frame(fds, gts, fid, host.numpy(), t0)
-                for fds, gts, fid, host, _, t0 in batch]
+        if batch:
+            for _, done in batch[-1][3]:
+                if done is not None:
+                    done.synchronize()
+        return [self._archive_frame(
+                    fds, gts, fid,
+                    np.concatenate([host.numpy() for host, _ in copies]), t0)
+                for fds, gts, fid, copies, t0 in batch]
 
     def flush(self) -> list[list[dict]]:
         """Archive every in-flight frame, in order."""

@@ -288,7 +288,9 @@ class FusedTracker:
         host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
         host.copy_(vec, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        # the copy's stream: that of vec's card, which need not be the
+        # current one (streams spread over cards, parallel/multisystem.py)
+        done.record(torch.cuda.current_stream(vec.device))
         return host, done
 
     def grab_frame(self, fd: FrameData, staged: dict | None = None) -> dict:
