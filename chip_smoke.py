@@ -11,10 +11,11 @@ Phases, in order (any failure raises and exits nonzero):
      1242x375 synthetic frame and a batch of 3; then one launch for the
      whole 8-level pyramid of that frame, and of frames 0-2 (S=3), level
      by level, and of the decoded first frames of the four streams of
-     phase 7 (S=4), stream by stream.  Then the pyramid's device time
-     (torch.profiler) and event time per frame against its bound, the plain
-     version's, the compass test's pass shares, per-level times, and the
-     S=1 and S=4 launches interleaved, each against its byte bound;
+     phase 7 (S=4) and of the six of phase 13b (S=6), stream by stream.
+     Then the pyramid's device time (torch.profiler) and event time per
+     frame against its bound, the plain version's, the compass test's pass
+     shares, per-level times, and the S=1, S=4 and S=6 launches
+     interleaved, each against its byte bound;
   4. the main path: System(mode="fused", device="cuda").run_sequence over
      the bench scene (make_scene(num_frames=101, 1242x375, 3 objects,
      seed 7); the dataset tracks num_frames - 1) cut to its first 25
@@ -101,16 +102,30 @@ Phases, in order (any failure raises and exits nonzero):
      phase 7's stream bounds, equal estimate counts; (c) the ORB
      orientations, descriptors and Hamming matches and the feature grid
      (ops/orb.py, ops/grid.py) on the card at one bench frame's FAST
-     keypoints, against the same on the CPU.
+     keypoints, against the same on the CPU;
+  13. the port's bench (vdo_slam_tpu_torch/bench.py) and pack tool, in
+     this process with stdout captured: (a) bench.main(hard=True) at full
+     size (bench.py --hard): its JSON line, one FAST launch per frame plus
+     the stage probe's, both metric reports gated against JAX_REF_HARD,
+     and its first window solve against the rest; (b)
+     bench_multistream(6, tag="_throughput") (bench.py --throughput):
+     its JSON line, one FAST launch per frame for all six streams, each
+     stream gated against JAX_REF_S6, peak memory; (c) the pack tool
+     (tools/pack_sequence.py) over phase 11's written sequence with
+     tpu_fast's wire flags, PackedDataset(dir) byte-equal to an
+     InMemoryPackedDataset of the same frames, and System(mode="fused")
+     over the directory against the same over the in-memory frames (poses
+     within phase 7's bounds), with the reader's host ms per frame.
 Phase 6 ends with the fused path's stage-time probe
 (FusedTracker.calibrate_stage_times) on the wire path's tracker, where
 bench.py runs it: the seven spans, their sum against a whole step, each
 span's kernel launches and device time under torch.profiler, one FAST
 launch per repetition of mask_update and of the whole step, the tracker's
 state unchanged, and timing() non-zero for every span.
-Phases 4 and 5 use `bench_config` / `bench_ba_config` (no wire flags),
-phases 6 and 7 `wire_config` (tpu_fast's wire flags).  Each phase prints
-its seconds.
+Phases 4 and 5 use `bench_config` / `bench_ba_config` (no wire flags);
+phases 6 and 7 take bench.py's configs, scene, packed frames and stream
+offsets from the port's bench (vdo_slam_tpu_torch/bench.py: bench_config,
+multistream_config).  Each phase prints its seconds.
 The line before the last holds the kernels' JSON record, the one before it
 the card as nvidia-smi reports it; the last line is the device JSON.
 """
@@ -166,10 +181,10 @@ JAX_REF_BA = {
                     (0.7532920837402344, 0.654660701751709),
                     (0.3620983362197876, 0.31730034947395325)],
 }
-# The JAX package's numbers for phase 6: the same run under `wire_config`
-# (tpu_fast's wire flags, fused_chunk=4) over an InMemoryPackedDataset,
-# printed by `JAX_PLATFORMS=cpu python tools/jax_wire_reference.py` (JAX
-# 0.9.0 on the CPU).
+# The JAX package's numbers for phase 6: the same run under bench.py's
+# config (the port's bench_config: tpu_fast's wire flags, fused_chunk=4)
+# over an InMemoryPackedDataset, printed by `JAX_PLATFORMS=cpu python
+# tools/jax_wire_reference.py` (JAX 0.9.0 on the CPU).
 JAX_REF_WIRE = {
     "initial": {
         "cam_t_rpe": 0.0002674052025226827,
@@ -274,11 +289,89 @@ JAX_REF_DISK = {
         },
     },
 }
+# The JAX package's numbers for phase 13a, the port's bench --hard:
+# bench.py's degraded scene (bench.py:246-259) under bench.py's config,
+# System(mode="fused") with both BA passes, printed by `JAX_PLATFORMS=cpu
+# python tools/jax_wire_reference.py --hard` (JAX 0.9.0 on the CPU, numpy
+# 2.0.2).
+JAX_REF_HARD = {
+    "initial": {
+        "cam_t_rpe": 0.01196788325210891,
+        "cam_r_rpe_deg": 0.02841260962552219,
+        "obj_t_rpe": 0.023125777803361416,
+        "obj_r_rpe_deg": 0.9013225063652698,
+        "n_obj_estimates": 100
+    },
+    "refined": {
+        "cam_t_rpe": 0.011967585026881694,
+        "cam_r_rpe_deg": 0.02841062758825719,
+        "obj_t_rpe": 0.005738687867997214,
+        "obj_r_rpe_deg": 0.40438695420666015,
+        "n_obj_estimates": 100
+    },
+    "window_solves": 6,
+}
+# The JAX package's numbers for phase 13b, the port's bench --throughput:
+# bench_multistream(6)'s config, windows and drive (bench.py:40-162), JAX
+# MultiStreamSystem with window BA on one device, each stream's metrics,
+# printed by `JAX_PLATFORMS=cpu python tools/jax_wire_reference.py
+# --streams 6` (JAX 0.9.0 on the CPU).  `--streams 4` prints the first four
+# of these six streams, digit for digit.
+JAX_REF_S6 = {
+    "offsets": [0, 7, 14, 21, 28, 35],
+    "window_solves": [2, 2, 2, 2, 2, 2],
+    "per_stream": [
+        {
+            "cam_t_rpe": 0.0002774139771607658,
+            "cam_r_rpe_deg": 0.0003604535232664692,
+            "obj_t_rpe": 0.0005370200723470924,
+            "obj_r_rpe_deg": 0.0071678554471188,
+            "n_obj_estimates": 76
+        },
+        {
+            "cam_t_rpe": 0.000256539277570662,
+            "cam_r_rpe_deg": 0.0003736250420942366,
+            "obj_t_rpe": 0.0005133838619388241,
+            "obj_r_rpe_deg": 0.0061716552587219135,
+            "n_obj_estimates": 70
+        },
+        {
+            "cam_t_rpe": 0.0002470560539292845,
+            "cam_r_rpe_deg": 0.00025800250365700143,
+            "obj_t_rpe": 0.0004914399549072127,
+            "obj_r_rpe_deg": 0.006928687104786842,
+            "n_obj_estimates": 62
+        },
+        {
+            "cam_t_rpe": 0.0002522383380191672,
+            "cam_r_rpe_deg": 0.00023492160789941868,
+            "obj_t_rpe": 0.0005551935832375999,
+            "obj_r_rpe_deg": 0.00771473223371896,
+            "n_obj_estimates": 55
+        },
+        {
+            "cam_t_rpe": 0.00027169363418987275,
+            "cam_r_rpe_deg": 0.00021249527077345467,
+            "obj_t_rpe": 0.0005146374863519062,
+            "obj_r_rpe_deg": 0.0068668614894156835,
+            "n_obj_estimates": 48
+        },
+        {
+            "cam_t_rpe": 0.00025597501917137816,
+            "cam_r_rpe_deg": 0.00023725964763387462,
+            "obj_t_rpe": 0.00047656611796134175,
+            "obj_r_rpe_deg": 0.00498266563677098,
+            "n_obj_estimates": 39
+        },
+    ],
+}
 DIST = (-0.28, 0.07, 0.0, 0.0, 0.0)    # tests/test_pipeline_e2e.py:258
 N_OPT_FRAMES = 25
 RESUME_TOL = 1e-6
 N_BA_FRAMES = 100
 N_STREAMS, N_STREAM_FRAMES = 4, 40   # bench.py --streams 4 (bench.py:40, 110)
+N_THROUGHPUT = 6                      # bench.py --throughput (bench.py:451)
+PHASE13_BUDGET_S = 120
 STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
 # A metric passes if it is within 2x the JAX number or under this floor,
 # whichever is looser.
@@ -307,14 +400,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def bench_scene(num_frames: int = N_BA_FRAMES + 1, width: int = W,
-                height: int = H):
-    from vdo_slam_tpu_torch.io.synthetic import make_scene
-
-    return make_scene(num_frames=num_frames, width=width, height=height,
-                      num_objects=3, fx=721.5377, seed=7)
 
 
 def bench_config(width: int = W, height: int = H):
@@ -346,46 +431,21 @@ def bench_ba_config(width: int = W, height: int = H):
         local_iters=4))
 
 
-def wire_config(fused_chunk: int, width: int = W, height: int = H):
-    """bench.py's config as bench.py runs it (bench.py:262-285):
-    bench_ba_config() through tpu_fast (the wire flags wire_flow_half,
-    wire_flow_delta, wire_entropy and fused_drain_chunks=8 on top of the LM
-    budgets bench_config already has), with bench.py's fused_chunk=4 in
-    phase 6 and bench_multistream's fused_chunk=1 in phase 7."""
-    from vdo_slam_tpu_torch.config import tpu_fast
+def stream_offsets(n_total: int, n_streams: int = N_STREAMS) -> list[int]:
+    """Where each stream's window starts (the port's bench, as bench.py:110
+    takes them)."""
+    from vdo_slam_tpu_torch import bench as port_bench
 
-    cfg = bench_ba_config(width, height)
-    return tpu_fast(cfg.replace(tracking=dataclasses.replace(
-        cfg.tracking, fused_chunk=fused_chunk)))
+    return port_bench.stream_offsets(n_total, n_streams, N_STREAM_FRAMES)
 
 
-def packed_dataset(scene, cfg):
-    """The scene's frames pre-packed under cfg's wire, as bench.py packs
-    them (bench.py:292-301)."""
-    from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
-    from vdo_slam_tpu_torch.io.packed_dataset import InMemoryPackedDataset
-
-    tr = cfg.tracking
-    return InMemoryPackedDataset(
-        SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744),
-        depth_map_factor=256.0, flow_down=tr.flow_down,
-        flow_delta=tr.flow_delta, depth_down=tr.depth_down,
-        depth_resid=tr.depth_resid, entropy=tr.entropy,
-        seg_cap=tr.wire_seg_cap, depth_exc_cap=tr.wire_depth_exc_cap)
-
-
-def stream_offsets(n_total: int) -> list[int]:
-    """Where each stream's window starts (bench.py:110)."""
-    return [(7 * s) % (n_total - N_STREAM_FRAMES) for s in range(N_STREAMS)]
-
-
-def stream_first_grays(pds, cfg, device):
+def stream_first_grays(pds, cfg, device, n_streams: int = N_STREAMS):
     """(S, H, W): the decoded gray of each stream's first frame, what the
     S-stream step hands the FAST kernel at frame 0."""
     from vdo_slam_tpu_torch.io.packing import unpack_frame, wire_kwargs
 
     bufs = np.stack([np.asarray(pds[o].packed)
-                     for o in stream_offsets(len(pds))])
+                     for o in stream_offsets(len(pds), n_streams)])
     return unpack_frame(torch.from_numpy(bufs).to(device), hw=(H, W),
                         **wire_kwargs(cfg.tracking))[0]
 
@@ -474,11 +534,12 @@ def _pyramids(scene, device, frames):
             for f in frames]
 
 
-def check_kernel(scene, device, stream_grays) -> tuple[float, float]:
+def check_kernel(scene, device, stream_grays: dict) -> tuple[float, dict]:
     """Phase 3a: kernel == plain version (atol=0), one level per launch and
-    one launch per pyramid.  Returns the largest abs error seen, and the
-    largest over the S=4 pyramid that phase 7 launches at its first frame
-    (`stream_grays`), held stream by stream."""
+    one launch per pyramid.  Returns the largest abs error seen, and per S
+    the largest over the S-stream pyramid that the S-stream step launches
+    at its first frame (`stream_grays` {S: (S, H, W)}: phase 7's S = 4 and
+    phase 13b's S = 6), held stream by stream."""
     from vdo_slam_tpu_torch.ops import fast
     from vdo_slam_tpu_torch.ops.fast_cuda import (KERNEL, fast_score_pair,
                                                   fast_score_pyramid)
@@ -533,22 +594,25 @@ def check_kernel(scene, device, stream_grays) -> tuple[float, float]:
                 f"one launch for the pyramid of {what}, level {l} "
                 f"{tuple(g.shape)}", g, k_ini, k_min, TH_INI, TH_MIN))
 
-    lv4 = fast.pyramid(stream_grays, 8, 1.2)
-    before = KERNEL.launches
-    pairs = fast_score_pyramid(lv4, TH_INI, TH_MIN)
-    torch.cuda.synchronize()
-    if KERNEL.launches != before + 1:
-        raise RuntimeError(f"S={N_STREAMS} pyramid: "
-                           f"{KERNEL.launches - before} launches, want 1")
-    err_batched = 0.0
-    for l, (g, (k_ini, k_min)) in enumerate(zip(lv4, pairs)):
-        if not g.is_contiguous():
-            raise RuntimeError(f"batched level {l} is not contiguous")
-        for st in range(N_STREAMS):
-            err_batched = max(err_batched, held(
-                f"one launch for the S={N_STREAMS} pyramid of the streams' "
-                f"first frames, stream {st}, level {l} {tuple(g[st].shape)}",
-                g[st], k_ini[st], k_min[st], TH_INI, TH_MIN))
+    err_batched = {}
+    for S, grays in stream_grays.items():
+        lvs = fast.pyramid(grays, 8, 1.2)
+        before = KERNEL.launches
+        pairs = fast_score_pyramid(lvs, TH_INI, TH_MIN)
+        torch.cuda.synchronize()
+        if KERNEL.launches != before + 1:
+            raise RuntimeError(f"S={S} pyramid: "
+                               f"{KERNEL.launches - before} launches, want 1")
+        err_batched[S] = 0.0
+        for l, (g, (k_ini, k_min)) in enumerate(zip(lvs, pairs)):
+            if not g.is_contiguous():
+                raise RuntimeError(f"batched level {l} is not contiguous")
+            for st in range(S):
+                err_batched[S] = max(err_batched[S], held(
+                    f"one launch for the S={S} pyramid of the streams' "
+                    f"first frames, stream {st}, level {l} "
+                    f"{tuple(g[st].shape)}",
+                    g[st], k_ini[st], k_min[st], TH_INI, TH_MIN))
     return max_err, err_batched
 
 
@@ -567,21 +631,23 @@ def _bound_ms(levels) -> tuple[float, float, float]:
     return byte_ms, ops_ms, max(byte_ms, ops_ms)
 
 
-def time_batched(scene, device, card: str, stream_grays) -> dict:
-    """Phase 3c: the kernel at S=1 and S=4 in one call, interleaved: device
-    time per launch and the share of each launch's byte bound."""
+def time_batched(scene, device, card: str, stream_grays: dict) -> dict:
+    """Phase 3c: the kernel at S=1 and at each S of `stream_grays` in one
+    call, interleaved: device time per launch and the share of each
+    launch's byte bound."""
     from vdo_slam_tpu_torch.ops import fast
     from vdo_slam_tpu_torch.ops.fast_cuda import fast_score_pyramid
 
-    lv = {1: fast.pyramid(stream_grays[0].contiguous(), 8, 1.2),
-          N_STREAMS: fast.pyramid(stream_grays, 8, 1.2)}
-    ms = {1: [], N_STREAMS: []}
-    for S in (1, N_STREAMS, N_STREAMS, 1):
+    first = next(iter(stream_grays.values()))[0].contiguous()
+    lv = {1: fast.pyramid(first, 8, 1.2)}
+    lv.update({S: fast.pyramid(g, 8, 1.2) for S, g in stream_grays.items()})
+    ms = {S: [] for S in lv}
+    for S in list(lv) + list(lv)[::-1]:
         ms[S].append(_device_ms(
             lambda: fast_score_pyramid(lv[S], TH_INI, TH_MIN), 20,
             per=KERNEL_NAME))
     out = {}
-    for S in (1, N_STREAMS):
+    for S in lv:
         byte_ms, ops_ms, bound = _bound_ms(lv[S])
         best = min(ms[S])
         out[S] = {"ms": best, "bound_ms": bound}
@@ -591,9 +657,9 @@ def time_batched(scene, device, card: str, stream_grays) -> dict:
               f"{bound * 1e3:.3f} us (bytes {byte_ms * 1e3:.3f} us, "
               f"operations {ops_ms * 1e3:.3f} us); share of the bound "
               f"reached {bound / best:.3f} [{card}]")
-    print(f"S={N_STREAMS} launch / S=1 launch: "
-          f"{out[N_STREAMS]['ms'] / out[1]['ms']:.3f}x the device time for "
-          f"{N_STREAMS}x the pixels [{card}]")
+    for S in stream_grays:
+        print(f"S={S} launch / S=1 launch: {out[S]['ms'] / out[1]['ms']:.3f}x "
+              f"the device time for {S}x the pixels [{card}]")
     return out
 
 
@@ -1575,9 +1641,10 @@ class _TimedReads:
         return fd
 
 
-def disk_path(scene, device, card: str, libs: dict) -> dict:
-    """Phase 11: a sequence written to disk, read by both readers, and
-    driven through the CLI and through System over the native reader."""
+def disk_path(scene, device, card: str, libs: dict, seq_root) -> dict:
+    """Phase 11: a sequence written to disk (under `seq_root`, kept for
+    phase 13c), read by both readers, and driven through the CLI and
+    through System over the native reader."""
     import contextlib
     import io
     import tempfile
@@ -1609,11 +1676,12 @@ def disk_path(scene, device, card: str, libs: dict) -> dict:
         first = dataclasses.replace(scene, **{
             f: getattr(scene, f)[:N_DISK + 1] for f in SCENE_FIELDS})
         t0 = time.perf_counter()
-        seq = write_reference_sequence(first, Path(tmp) / "seq",
+        seq = write_reference_sequence(first, Path(seq_root) / "seq",
                                        depth_map_factor=tr.depth_map_factor,
                                        bf=cfg.camera.bf)
         print(f"disk path: {N_DISK + 1} frames written in "
               f"{time.perf_counter() - t0:.2f} s")
+        out["seq"] = seq
         yaml = Path(tmp) / "settings.yaml"
         yaml.write_text(settings_yaml(cfg))
 
@@ -1954,6 +2022,234 @@ def orb_grid(scene, device, card: str) -> dict:
             "bits_equal": bits}
 
 
+def _bench_record(text: str, metric: str) -> dict:
+    """The port's bench printed one JSON line, with bench.py's keys and
+    `metric`, and vs_baseline = fps / 0.249 (value is fps to 3 places)."""
+    lines = text.splitlines()
+    if len(lines) != 1:
+        raise RuntimeError(f"the bench printed {len(lines)} stdout lines, "
+                           f"want 1: {lines}")
+    rec = json.loads(lines[0])
+    if (set(rec) != {"metric", "value", "unit", "vs_baseline"}
+            or rec["metric"] != metric or rec["unit"] != "frames/sec"
+            or not rec["value"] > 0
+            or abs(rec["vs_baseline"] - rec["value"] / 0.249) > 3e-3):
+        raise RuntimeError(f"the bench's JSON line {rec}, want metric "
+                           f"{metric}")
+    print(f"bench JSON line: {lines[0]}")
+    return rec
+
+
+def bench_hard(device, card: str) -> dict:
+    """Phase 13a: the port's bench.main(hard=True) at full size, stdout
+    captured: its JSON line, one FAST launch per frame (plus those of the
+    stage probe after the timed region), and both metric reports gated
+    against JAX_REF_HARD."""
+    import contextlib
+    import io
+    import os
+
+    from vdo_slam_tpu_torch import bench as port_bench
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = port_bench.main(hard=True, device=device)
+    secs = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    rec = _bench_record(buf.getvalue(), "kitti_synth_hard_fps")
+    n = res["frames"]
+    # calibrate_stage_times's 2 rounds: each repetition of mask_update and
+    # of the whole step launches the kernel once
+    probe = (0 if os.environ.get("VDO_BENCH_NO_PROBE")
+             else port_bench.PROBE_ITERS * (1 + 2 * 2))
+    solves = res["window_solve_ms"]
+    first = solves[0] if solves else math.nan
+    rest = float(np.median(solves[1:])) if len(solves) > 1 else math.nan
+    full = res["full_ba"]
+    print(f"bench --hard: {rec['value']} fps over {n - port_bench.warmup_frames()}"
+          f" timed frames (tracking, {len(solves)} window solves and the "
+          f"full BA: {full['t_build_s'] + full['t_solve_s'] + full['t_writeback_s']:.3f} s); "
+          f"{secs:.1f} s in all with the scene, packing, warm frames and "
+          f"the probe; {launches} FAST launches ({n} frames + {probe} in "
+          f"the probe); peak device memory {peak / 2**20:.1f} MiB [{card}]")
+    print(f"bench --hard, window solves in the timed region: the first "
+          f"{first:.3f} ms, the median of the rest {rest:.3f} ms "
+          f"({first / rest:.3f}x); all {json.dumps(solves)} [{card}]")
+    if launches != n + probe:
+        raise RuntimeError(f"bench --hard: {launches} FAST launches, want "
+                           f"{n} + {probe}")
+    if len(solves) != JAX_REF_HARD["window_solves"]:
+        raise RuntimeError(f"bench --hard: {len(solves)} window solves, want "
+                           f"{JAX_REF_HARD['window_solves']}")
+    if not full["cost"] < full["cost0"]:
+        raise RuntimeError("bench --hard: the full BA did not lower the cost")
+    sysm = res["system"]
+    gate(sysm.metrics(), JAX_REF_HARD["initial"], " (bench --hard, before "
+         "full BA)")
+    gate(sysm.metrics(refined=True), JAX_REF_HARD["refined"],
+         " (bench --hard, refined)")
+    return {"launches": launches, "fps": rec["value"], "peak_bytes": peak,
+            "first_solve_ms": first, "median_solve_ms": rest}
+
+
+def bench_throughput(device, card: str, peak_s4: int) -> dict:
+    """Phase 13b: the port's bench_multistream(6, tag="_throughput") (6
+    streams x 40 frames), stdout captured: its JSON line, one FAST launch
+    per frame for all six streams, each stream gated against JAX_REF_S6,
+    and peak memory within 1.25x of phase 7's S = 4 peak scaled by 6 / 4."""
+    import contextlib
+    import io
+
+    from vdo_slam_tpu_torch import bench as port_bench
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = port_bench.bench_multistream(N_THROUGHPUT, tag="_throughput",
+                                           device=device)
+    secs = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    rec = _bench_record(
+        buf.getvalue(),
+        f"kitti_synth_multistream{N_THROUGHPUT}_throughput_aggregate_fps")
+    msys = res["system"]
+    bound = 1.25 * peak_s4 * N_THROUGHPUT / N_STREAMS
+    print(f"bench --throughput: S={N_THROUGHPUT}, {rec['value']} aggregate "
+          f"fps ({rec['value'] / N_THROUGHPUT:.3f} per stream) after "
+          f"{port_bench.WARM} warm frames; {secs:.1f} s in all; {launches} "
+          f"FAST launches in {N_STREAM_FRAMES} frames; peak device memory "
+          f"{peak} bytes ({peak / 2**20:.1f} MiB; bound {bound / 2**20:.1f} "
+          f"MiB) [{card}]")
+    if launches != N_STREAM_FRAMES:
+        raise RuntimeError(f"bench --throughput: {launches} FAST launches in "
+                           f"{N_STREAM_FRAMES} batched frames, want one per "
+                           f"frame")
+    if res["offsets"] != JAX_REF_S6["offsets"]:
+        raise RuntimeError(f"stream offsets {res['offsets']}")
+    if ([len(t.ba_health) for t in msys.trackers]
+            != JAX_REF_S6["window_solves"]):
+        raise RuntimeError("bench --throughput: window solve counts differ "
+                           "from the JAX run's")
+    if not peak <= bound:
+        raise RuntimeError(f"bench --throughput: peak memory {peak} above "
+                           f"{bound}")
+    for st, (rep, ref) in enumerate(zip(msys.metrics()["per_stream"],
+                                        JAX_REF_S6["per_stream"])):
+        gate(rep, ref, f" (bench --throughput, stream {st})")
+    return {"launches": launches, "fps": rec["value"], "peak_bytes": peak}
+
+
+def packed_dir(seq, device, card: str) -> dict:
+    """Phase 13c: the port's pack_sequence CLI over phase 11's written
+    sequence with tpu_fast's wire flags; PackedDataset(dir) byte-equal to
+    an InMemoryPackedDataset of the same frames; System(mode="fused") over
+    the directory (bench.py's config, fused_chunk 1, BA off) against the
+    same over the in-memory frames."""
+    import contextlib
+    import io
+    import tempfile
+
+    from vdo_slam_tpu_torch import bench as port_bench
+    from vdo_slam_tpu_torch.io.dataset import SequenceDataset
+    from vdo_slam_tpu_torch.io.packed_dataset import (InMemoryPackedDataset,
+                                                      PackedDataset)
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.pipeline import System
+    from vdo_slam_tpu_torch.tools import pack_sequence
+
+    if seq is None:
+        print("(13c) packed directory: not run: phase 11 wrote no sequence")
+        return {"launches": None}
+    cfg = port_bench.bench_config()
+    cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                   fused_chunk=1))
+    tr = cfg.tracking
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [str(seq), f"{tmp}/packed", "--depth-map-factor",
+                str(tr.depth_map_factor), "--flow-delta", "--entropy"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = pack_sequence.main(argv)
+        pack_s = time.perf_counter() - t0
+        pdir = PackedDataset(f"{tmp}/packed")
+        pdir.check_config(cfg)
+        mem = InMemoryPackedDataset(
+            SequenceDataset(seq), depth_map_factor=tr.depth_map_factor,
+            flow_down=tr.flow_down, flow_delta=tr.flow_delta,
+            depth_down=tr.depth_down, depth_resid=tr.depth_resid,
+            entropy=tr.entropy, seg_cap=tr.wire_seg_cap,
+            depth_exc_cap=tr.wire_depth_exc_cap)
+        print(f"(13c) pack_sequence {' '.join(argv[2:])}: exit {rc}, "
+              f"{buf.getvalue().strip()!r}, {len(pdir)} frames in "
+              f"{pack_s:.2f} s, {pdir.meta['wire_len'] * 2} bytes per frame")
+        if rc != 0 or len(pdir) != len(mem):
+            raise RuntimeError(f"pack_sequence: exit {rc}, {len(pdir)} "
+                               f"frames packed, want {len(mem)}")
+        for i in range(len(mem)):
+            a, b = pdir[i], mem[i]
+            if not (np.array_equal(np.asarray(a.packed), b.packed.ravel())
+                    and np.array_equal(a.pose_gt_raw, b.pose_gt_raw)
+                    and np.array_equal(a.obj_gt_rows, b.obj_gt_rows)
+                    and a.timestamp == b.timestamp):
+                raise RuntimeError(f"packed directory frame {i} differs from "
+                                   f"the in-memory pack")
+        t0 = time.perf_counter()
+        for i in range(len(pdir)):
+            np.array(pdir[i].packed)
+        row_ms = (time.perf_counter() - t0) / len(pdir) * 1e3
+        print(f"(13c) PackedDataset: every frame's packed bytes, pose, "
+              f"object rows and time equal to the in-memory pack's "
+              f"({len(pdir)} frames); a frame's read (memmap row and a copy "
+              f"of it) {row_ms:.4f} ms on the host")
+        runs = {}
+        reads = _TimedReads(pdir)
+        for name, ds in (("directory", reads), ("in memory", mem)):
+            sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                          mode="fused", device=device)
+            torch.cuda.synchronize()
+            KERNEL.launches = 0
+            t0 = time.perf_counter()
+            reps = sysm.run_sequence(_View(ds, 0, N_DISK))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = KERNEL.launches
+            print(f"(13c) System(mode='fused') over the {name} packs: "
+                  f"{len(reps)} frames in {secs:.3f} s, {launches} FAST "
+                  f"launches [{card}]")
+            if len(reps) != N_DISK or launches != N_DISK:
+                raise RuntimeError(f"{name}: {len(reps)} frames, {launches} "
+                                   f"FAST launches, want {N_DISK} and "
+                                   f"{N_DISK}")
+            runs[name] = (sysm, launches)
+    print(f"(13c) the directory reader's __getitem__ took "
+          f"{reads.secs / reads.n * 1e3:.4f} ms per frame on its thread "
+          f"while the card tracked (the memmap row is copied by the upload)")
+    (a, la), (b, _) = runs["directory"], runs["in memory"]
+    gaps = [_pose_gap(x, y) for x, y in zip(a.map.cam_pose, b.map.cam_pose)]
+    dt, dr = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    ea, eb = a.metrics(), b.metrics()
+    print(f"(13c) directory against in memory: largest pose gap {dt:.3e} m, "
+          f"{dr:.3e} deg (bound {STREAM_T_TOL_M} m / {STREAM_R_TOL_DEG} "
+          f"deg); metrics {json.dumps(ea)} / {json.dumps(eb)} [{card}]")
+    if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG
+            and ea["n_obj_estimates"] == eb["n_obj_estimates"]):
+        raise RuntimeError("the packed directory's run differs from the "
+                           "in-memory run")
+    return {"launches": la, "row_ms": row_ms, "pose_gap": (dt, dr)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1985,22 +2281,27 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")
 
+    import tempfile
+
+    from vdo_slam_tpu_torch import bench as port_bench
+
     libs = host_libraries()
     t0 = time.perf_counter()
-    scene = bench_scene()
+    scene = port_bench.bench_scene()
     print(f"scene: {scene.rgb.shape} made in {time.perf_counter() - t0:.1f} s")
     from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
 
-    cfg_wire = wire_config(fused_chunk=4)
+    cfg_wire = port_bench.bench_config()
     t0 = time.perf_counter()
-    pds = packed_dataset(scene, cfg_wire)
+    pds = port_bench.packed_dataset(scene, cfg_wire)
     print(f"{len(pds)} frames packed under tpu_fast's wire in "
           f"{time.perf_counter() - t0:.1f} s, {pds[0].packed.nbytes} bytes "
           f"per frame (JAX package: "
           f"{JAX_REF_WIRE['wire_bytes_per_frame']})")
     if pds[0].packed.nbytes != JAX_REF_WIRE["wire_bytes_per_frame"]:
         raise RuntimeError("the wire's length differs from the JAX package's")
-    grays = stream_first_grays(pds, cfg_wire, device)
+    grays = {S: stream_first_grays(pds, cfg_wire, device, S)
+             for S in (N_STREAMS, N_THROUGHPUT)}
     phase_done("1-2 (card, build, scene, packing)")
     max_err, err_batched = check_kernel(scene, device, grays)
     kern = time_pyramid(scene, device, card)
@@ -2021,7 +2322,8 @@ def main() -> int:
                device, card)
     probe = stage_probe(wire["system"], pds, device, card)
     phase_done("6 (wire path, stage probe)")
-    streams = stream_path(pds, wire_config(fused_chunk=1), device, card)
+    streams = stream_path(pds, port_bench.multistream_config(), device,
+                          card)
     phase_done("7 (S-stream path)")
     ref = reference_path(scene, device, card)
     phase_done("8 (default path, mode reference)")
@@ -2029,14 +2331,28 @@ def main() -> int:
     phase_done("9 (options)")
     cli_and_resume(device, card)
     phase_done("10 (CLI and resume)")
-    disk = disk_path(scene, device, card, libs)
+    work = tempfile.TemporaryDirectory()
+    disk = disk_path(scene, device, card, libs, work.name)
     phase_done("11 (on-disk input path)")
     sharded_ba(ba, bench_ba_config(), device, card)
     phase_done("12a (the full BA over 1, 2 and 4 edge shards)")
-    grouped = grouped_streams(pds, wire_config(fused_chunk=1), device, card)
+    grouped = grouped_streams(pds, port_bench.multistream_config(), device,
+                              card)
     phase_done("12b (four streams in two groups)")
     orb_grid(scene, device, card)
     phase_done("12c (ORB and the grid)")
+    t13 = time.perf_counter()
+    hard = bench_hard(device, card)
+    phase_done("13a (the port's bench, --hard)")
+    thr = bench_throughput(device, card, streams["peak_bytes"])
+    phase_done("13b (the port's bench, --throughput: S = 6)")
+    pdir = packed_dir(disk.get("seq"), device, card)
+    work.cleanup()
+    if pdir["launches"] is None:
+        disk["not_run"].append("the packed directory (13c)")
+    phase_done("13c (pack_sequence and PackedDataset)")
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s (budget "
+          f"{PHASE13_BUDGET_S} s)")
     if disk["not_run"]:
         print(f"NOT RUN (a host library is missing; not passed): "
               f"{', '.join(disk['not_run'])}")
@@ -2057,14 +2373,21 @@ def main() -> int:
         "launches_disk_fused_path": disk["fused_launches"],
         "launches_probe": probe["launches"],
         "launches_grouped_streams_path": grouped["launches"],
+        "launches_hard_path": hard["launches"],
+        "launches_throughput_path": thr["launches"],
+        "launches_packed_dir_path": pdir["launches"],
         "streams": N_STREAMS,
+        "streams_throughput": N_THROUGHPUT,
         "max_abs_err": max_err,
-        "max_abs_err_batched": err_batched,
+        "max_abs_err_batched": err_batched[N_STREAMS],
+        "max_abs_err_batched_s6": err_batched[N_THROUGHPUT],
         "ms": kern["ms"],
         "ms_s4": kern_s[N_STREAMS]["ms"],
+        "ms_s6": kern_s[N_THROUGHPUT]["ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"],
         "bound_ms_s4": kern_s[N_STREAMS]["bound_ms"],
+        "bound_ms_s6": kern_s[N_THROUGHPUT]["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": None,
     }]}))

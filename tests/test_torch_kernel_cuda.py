@@ -1,6 +1,7 @@
 """GPU-only tests of the port: the CUDA FAST kernel bit for bit against its
 plain version (one level and a whole pyramid per launch, and the pyramids
-of S streams' decoded frames in one launch, held stream by stream), the
+of S = 4 and S = 6 streams' decoded frames in one launch, held stream by
+stream), the
 wire decode on the card against the CPU's, the packed fused step and the
 S-stream system on the card against the same on the CPU, the host Tracker
 (System mode "reference") on the card against the same on the CPU with
@@ -263,27 +264,37 @@ def test_unpack_on_card_equals_cpu(wire):
         assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
 
 
-def test_batched_kernel_equals_plain_per_stream():
+def _batched_kernel_held_per_stream(S):
     """The launch the S-stream step makes: the pyramids of S decoded
-    frames, S in the kernel's grid, against the plain version per stream."""
+    bench frames, S in the kernel's grid, against the plain version per
+    stream."""
     from vdo_slam_tpu_torch.io.packing import pack_frame, unpack_frame
 
-    scene = make_scene(num_frames=5, width=1242, height=375, num_objects=3,
-                       fx=721.5377, seed=7)
+    scene = make_scene(num_frames=S + 1, width=1242, height=375,
+                       num_objects=3, fx=721.5377, seed=7)
     ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
     bufs = np.stack([pack_frame(fd.rgb, fd.depth_raw, fd.flow, fd.mask)
-                     for fd in (ds[i] for i in range(4))])
+                     for fd in (ds[i] for i in range(S))])
     gray = unpack_frame(torch.from_numpy(bufs).cuda())[0]
     levels = fast.pyramid(gray, 8, 1.2)
-    assert all(lv.is_contiguous() and lv.shape[0] == 4 for lv in levels)
+    assert all(lv.is_contiguous() and lv.shape[0] == S for lv in levels)
     before = KERNEL.launches
     pairs = fast_score_pyramid(levels, TH_INI, TH_MIN)
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
     for g, (k_ini, k_min) in zip(levels, pairs):
-        for s in range(4):
+        for s in range(S):
             assert torch.equal(k_ini[s], fast.fast_score(g[s], TH_INI))
             assert torch.equal(k_min[s], fast.fast_score(g[s], TH_MIN))
+
+
+def test_batched_kernel_equals_plain_per_stream():
+    _batched_kernel_held_per_stream(4)
+
+
+def test_batched_kernel_equals_plain_per_stream_at_s6():
+    """bench --throughput's S = 6: 8.65 M pixels in one launch."""
+    _batched_kernel_held_per_stream(6)
 
 
 def test_multistream_system_on_card_matches_cpu_and_launches_once():

@@ -169,6 +169,55 @@ class TestRansac:
         np.testing.assert_array_equal(out, fb)
 
 
+class TestKabsch:
+    """The port's SVD Kabsch (solvers/ransac.py:kabsch): the JAX tests of
+    tests/test_solvers.py:137-172 on the port, with the same jax.random
+    inputs, and the port against JAX's kabsch on seeded inputs."""
+
+    @staticmethod
+    def _se3_err(T_a, T_b):
+        from vdo_slam_tpu_torch.geometry import se3
+
+        return float(torch.linalg.vector_norm(
+            se3.log(se3.inv(T_a) @ T_b)))
+
+    def test_kabsch_exact(self):
+        from vdo_slam_tpu_torch.geometry import se3
+
+        P = _t(jax.random.normal(jax.random.PRNGKey(0), (10, 3)) * 5.0)
+        T_true = se3.exp(torch.tensor([0.3, -0.2, 0.5, 1.0, 2.0, -0.5]))
+        Q = se3.apply(T_true, P)
+        T = ransac.kabsch(P, Q, torch.ones(10))
+        assert self._se3_err(T, T_true) < 1e-4
+
+    def test_kabsch_polar_matches_svd_kabsch(self):
+        from vdo_slam_tpu_torch.geometry import se3
+
+        k1, k2, k3 = jax.random.split(jax.random.PRNGKey(3), 3)
+        P = _t(jax.random.normal(k1, (64, 3)) * 4.0)
+        T_true = se3.exp(torch.tensor([-0.4, 0.25, 0.6, 0.5, -1.5, 2.0]))
+        Q = se3.apply(T_true, P) + 0.05 * _t(jax.random.normal(k2, (64, 3)))
+        w = _t(jax.random.uniform(k3, (64,), minval=0.0, maxval=1.0))
+        T_svd = ransac.kabsch(P, Q, w)
+        T_pol = ransac.kabsch_polar(P, Q, w, torch.eye(4))
+        assert self._se3_err(T_svd, T_pol) < 1e-4
+        assert self._se3_err(T_pol, T_true) < 0.05
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_kabsch_matches_jax(self, seed):
+        rng = np.random.default_rng(seed)
+        P = rng.normal(size=(40, 3)).astype(np.float32) * 3.0
+        R, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        R *= np.sign(np.linalg.det(R))
+        Q = (P @ R.T + rng.normal(size=3) + 0.02 * rng.normal(size=(40, 3))
+             ).astype(np.float32)
+        w = rng.uniform(0.0, 1.0, 40).astype(np.float32)
+        got = ransac.kabsch(_t(P), _t(Q), _t(w)).numpy()
+        want = np.asarray(jransac.kabsch(jnp.asarray(P), jnp.asarray(Q),
+                                         jnp.asarray(w)))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
 class TestFlowLM:
     @pytest.mark.parametrize("iters", [4, 10])
     def test_camera_solve(self, iters):

@@ -268,9 +268,9 @@ def tpu_fast(cfg: VDOConfig) -> VDOConfig:
     """The JAX package's throughput preset (bench.py uses it): camera and
     object LM iterations 10 and 6, the lossless packed wire (half-res flow,
     row-delta flow coding, entropy wire), 8 chunks per output drain, and 4
-    window-BA iterations.  The port runs the LM budgets; its System raises
-    for the wire flags, which it does not port.  Why each value was chosen,
-    and what was measured on a TPU for it, is in the original's docstring.
+    window-BA iterations; the port runs all of them, the wire flags
+    included (io/packing.py).  Why each value was chosen, and what was
+    measured on a TPU for it, is in the original's docstring.
     """
     return cfg.replace(
         solver=dataclasses.replace(cfg.solver, lm_iters=10, lm_iters_obj=6),

@@ -90,6 +90,22 @@ def kabsch_polar(P: Tensor, Q: Tensor, w: Tensor,
     return torch.where(ok[..., None, None], se3.from_Rt(R, t), T_fallback)
 
 
+def kabsch(P: Tensor, Q: Tensor, w: Tensor) -> Tensor:
+    """Weighted rigid alignment by SVD: T (4x4) minimizing
+    sum w ||Q - T(P)||^2, the reflection removed by the determinant sign.
+    P, Q (N, 3), w (N,) nonnegative.  No path calls it: it is the classic
+    solve that kabsch_polar is held to."""
+    wn = w / torch.clamp(torch.sum(w), min=1e-9)
+    p_bar = torch.einsum("n,ni->i", wn, P)
+    q_bar = torch.einsum("n,ni->i", wn, Q)
+    M = torch.einsum("n,ni,nj->ij", wn, Q - q_bar, P - p_bar)
+    U, _, Vt = torch.linalg.svd(M)
+    D = torch.ones(3, dtype=M.dtype, device=M.device)
+    D[2] = torch.linalg.det(U @ Vt)
+    R = U @ torch.diag(D) @ Vt
+    return se3.from_Rt(R, q_bar - R @ p_bar)
+
+
 def reprojection_inliers(T: Tensor, X_src: Tensor, uv_obs: Tensor,
                          valid: Tensor, K: Tensor, thres: float):
     """Inliers under T: ||uv_obs - pi(T X_src)|| < thres and in front of
