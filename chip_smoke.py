@@ -115,7 +115,15 @@ Phases, in order (any failure raises and exits nonzero):
      tpu_fast's wire flags, PackedDataset(dir) byte-equal to an
      InMemoryPackedDataset of the same frames, and System(mode="fused")
      over the directory against the same over the in-memory frames (poses
-     within phase 7's bounds), with the reader's host ms per frame.
+     within phase 7's bounds), with the reader's host ms per frame;
+  14. the port's probe tools (vdo_slam_tpu_torch/tools/), in this process
+     on the scene made above: probe_loop.main(n_frames=24) (upload, the
+     host's dispatch and the device's time per frame of step_chunk,
+     launches per frame, run_sequence with window BA off and on) and
+     probe_chunk.main(n_frames=24) (per chunk: submit, grab_chunk,
+     stage-wait; the drain, ms per frame, then run_sequence on the same
+     System).  Checks: every phase time finite and >= 0, every drive
+     archiving the frames it was given, one FAST launch per frame stepped.
 Phase 6 ends with the fused path's stage-time probe
 (FusedTracker.calibrate_stage_times) on the wire path's tracker, where
 bench.py runs it: the seven spans, their sum against a whole step, each
@@ -372,6 +380,8 @@ N_BA_FRAMES = 100
 N_STREAMS, N_STREAM_FRAMES = 4, 40   # bench.py --streams 4 (bench.py:40, 110)
 N_THROUGHPUT = 6                      # bench.py --throughput (bench.py:451)
 PHASE13_BUDGET_S = 120
+N_PROBE_FRAMES = 24                   # phase 14: frames per probe drive
+PHASE14_BUDGET_S = 120
 STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
 # A metric passes if it is within 2x the JAX number or under this floor,
 # whichever is looser.
@@ -395,11 +405,10 @@ KERNEL_NAME = "fast_pyramid"  # in the profiler's name of the CUDA kernel
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    """The card as nvidia-smi gives its name and power limit."""
+    from vdo_slam_tpu_torch.bench import card_line as port_card_line
+
+    return port_card_line(torch.device("cuda", 0))
 
 
 def bench_config(width: int = W, height: int = H):
@@ -2250,6 +2259,47 @@ def packed_dir(seq, device, card: str) -> dict:
     return {"launches": la, "row_ms": row_ms, "pose_gap": (dt, dr)}
 
 
+def probes(device, card: str) -> dict:
+    """Phase 14: probe_loop and probe_chunk (vdo_slam_tpu_torch/tools/) at
+    N_PROBE_FRAMES frames on the bench's scene, made once per process, with
+    their numbers on lines that begin with the card.  Fails on a phase time
+    that is negative or NaN, a drive that archives other than the frames it
+    was given, or FAST launches other than one per frame stepped."""
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.tools import probe_chunk, probe_loop
+
+    out = {}
+    for name, tool in (("probe_loop", probe_loop),
+                       ("probe_chunk", probe_chunk)):
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        res = tool.main(n_frames=N_PROBE_FRAMES, device=device)
+        secs = time.perf_counter() - t0
+        launches = KERNEL.launches
+        print(f"{card} | {name} in {secs:.1f} s: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res.items() if isinstance(v, float)))
+        for d in res["drives"]:
+            print(f"{card} | {name}, {d['what']}: {d['archived']} of "
+                  f"{d['given']} frames archived, {d['steps']} stepped")
+        if "chunk_ms" in res:
+            print(f"{card} | {name}, per chunk (submit, grab_chunk, "
+                  f"stage-wait ms): " + "; ".join(
+                      ", ".join(f"{x:.3f}" for x in row)
+                      for row in res["chunk_ms"]))
+        print(f"{card} | {name}: {launches} FAST launches for "
+              f"{res['steps']} frames stepped")
+        probe_loop.check_phases(res, name)   # no time negative or NaN
+        for d in res["drives"]:
+            if d["archived"] != d["given"]:
+                raise RuntimeError(f"{name}, {d['what']}: {d['archived']} "
+                                   f"frames archived, {d['given']} given")
+        if launches != res["steps"]:
+            raise RuntimeError(f"{name}: {launches} FAST launches for "
+                               f"{res['steps']} frames stepped")
+        out[name] = dict(res, launches=launches, seconds=secs)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2353,6 +2403,11 @@ def main() -> int:
     phase_done("13c (pack_sequence and PackedDataset)")
     print(f"phase 13: {time.perf_counter() - t13:.1f} s (budget "
           f"{PHASE13_BUDGET_S} s)")
+    t14 = time.perf_counter()
+    probed = probes(device, card)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s (budget "
+          f"{PHASE14_BUDGET_S} s)")
+    phase_done("14 (probe_loop and probe_chunk)")
     if disk["not_run"]:
         print(f"NOT RUN (a host library is missing; not passed): "
               f"{', '.join(disk['not_run'])}")
@@ -2376,6 +2431,8 @@ def main() -> int:
         "launches_hard_path": hard["launches"],
         "launches_throughput_path": thr["launches"],
         "launches_packed_dir_path": pdir["launches"],
+        "launches_probe_loop": probed["probe_loop"]["launches"],
+        "launches_probe_chunk": probed["probe_chunk"]["launches"],
         "streams": N_STREAMS,
         "streams_throughput": N_THROUGHPUT,
         "max_abs_err": max_err,

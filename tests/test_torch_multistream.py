@@ -26,6 +26,7 @@ import torch
 from tests.test_pipeline_e2e import small_config
 from tests.test_torch_slice import (R_TOL_DEG, T_TOL_M, WIRE, port_config,
                                     pose_gap, tiny_pair)
+from tests.torch_two_groups import frame_gaps, tiny_wire_config, two_group_runs
 from vdo_slam_tpu.parallel.multistream import make_stream_state as jax_state
 from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
 from vdo_slam_tpu_torch.io.synthetic import make_scene
@@ -176,28 +177,36 @@ class TestMultiStreamSystem:
 def two_device_runs():
     """S = 2 on two 96x64 scenes under tpu_fast's wire, window BA every 2
     frames from frame 3, drains of 3 frames: on one device, and over
-    ["cpu", "cpu"], one stream per device."""
+    ["cpu", "cpu"], one stream per device (tests/torch_two_groups.py, which
+    measures the same runs on a host without jax)."""
     _, cfg = tiny_pair(window_size=4, overlap_size=2, fused_drain_chunks=3,
                        **WIRE)
-    dss = [SyntheticDataset(make_scene(num_frames=7, width=96, height=64,
-                                       num_objects=1, seed=s),
-                            depth_map_factor=1.0, bf=40.0) for s in (1, 2)]
-    runs = {}
-    for name, devices in (("one", ["cpu"]), ("two", ["cpu", "cpu"])):
-        msys = MultiStreamSystem(cfg, n_streams=2, enable_local_ba=True,
-                                 devices=devices)
-        launches = KERNEL.launches
-        runs[name] = (msys, msys.run(dss), KERNEL.launches - launches)
-    return runs
+    assert cfg == tiny_wire_config()
+    return two_group_runs(cfg)
+
+
+# The per-frame bound of two groups against one: GAP_A + GAP_B * frame.
+GAP_A, GAP_B = 2e-6, 2e-6
 
 
 def test_two_devices_equal_one_device(two_device_runs):
     """Each stream over two devices against the same stream in the
-    one-device batch of two: every archived pose entry within 5e-6, the
-    same labels, reports, estimates and window solves.  The batched body
-    under vmap rounds differently for a batch of one than of two, and the
-    gap grows by ~5e-7 a frame: 2.86e-6 at frame 5 here, with or without
-    the window solves (a stream against its solo run: 2.5e-6)."""
+    one-device batch of two: each archived frame f's pose entries
+    (cam_pose, cam_pose_rf) within GAP_A + GAP_B * f, the same labels,
+    reports, estimates and window solves.  The batched body under vmap
+    rounds a batch of one differently from a batch of two, and the window
+    solves (frames 3 and 5) carry the gap on, so it grows from frame to
+    frame at a rate that depends on the host's CPU kernels
+    (`python tests/torch_two_groups.py` prints it):
+    - an 8-core AMD EPYC, torch 2.13.0+cpu (AVX512): at frames 1-5 stream
+      0 1.8e-7, 4.7e-7, 8.9e-7, 1.2e-6, 1.2e-6; stream 1 9.5e-7, 1.2e-6,
+      5.1e-6, 5.3e-6, 7.6e-6;
+    - the CPU of the H100 machine, 8 Intel cores, torch 2.11.0+cu128
+      (AVX512): stream 0 4.2e-7, 6.6e-7, 2.0e-6, 2.4e-6, 2.9e-6; stream 1
+      2.5e-7, 4.5e-7, 3.6e-7, 8.3e-7, 6.0e-7.
+    Frame 0 agrees to 5e-14 on both.  The bound, 4e-6 at frame 1 to
+    1.2e-5 at frame 5, is at least 1.5x the larger of the two at every
+    frame."""
     (one, reps1, l1), (two, reps2, l2) = (two_device_runs["one"],
                                           two_device_runs["two"])
     assert len(one.groups) == 1 and len(two.groups) == 2
@@ -208,10 +217,9 @@ def test_two_devices_equal_one_device(two_device_runs):
         a, b = two.maps[s], one.maps[s]
         assert a.num_frames == b.num_frames == n == 6
         assert [r["frame_id"] for r in reps2[s]] == list(range(n))
-        np.testing.assert_allclose(np.stack(a.cam_pose), np.stack(b.cam_pose),
-                                   atol=5e-6)
-        np.testing.assert_allclose(np.stack(a.cam_pose_rf),
-                                   np.stack(b.cam_pose_rf), atol=5e-6)
+        gaps = np.asarray(frame_gaps(one, two, s))
+        bound = GAP_A + GAP_B * np.arange(n)
+        assert (gaps <= bound).all(), (s, gaps, bound)
         assert a.sem_label == b.sem_label and a.rm_label == b.rm_label
         assert m2[s]["n_obj_estimates"] == m1[s]["n_obj_estimates"]
         assert len(two.trackers[s].ba_health) == len(

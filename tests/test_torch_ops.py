@@ -95,9 +95,18 @@ class TestSelect:
                               jnp.asarray(valid), fill=-1))
         ref = rng.normal(size=(20, 2)).astype(np.float32) * 3
         rv = rng.random(20) > 0.5
-        same(select.min_dist_to_set(_t(arr), _t(ref), _t(rv)),
-             jsel.min_dist_to_set(jnp.asarray(arr), jnp.asarray(ref),
-                                  jnp.asarray(rv)))
+        port = select.min_dist_to_set(_t(arr), _t(ref), _t(rv)).numpy()
+        jax_out = np.asarray(jsel.min_dist_to_set(
+            jnp.asarray(arr), jnp.asarray(ref), jnp.asarray(rv)))
+        # The same formula on both sides, but XLA may round its fused sum of
+        # squares once differently (1 ulp on some hosts), so both are held
+        # to a float64 evaluation, and to each other, within 2 fp32 ulp.
+        d2 = ((arr[:, None, :].astype(np.float64) - ref[None]) ** 2).sum(-1)
+        want = np.sqrt(np.where(rv[None], d2, np.inf).min(-1))
+        ulp2 = 2 * np.finfo(np.float32).eps       # 2.4e-7
+        np.testing.assert_allclose(port, want, rtol=ulp2, atol=0)
+        np.testing.assert_allclose(jax_out, want, rtol=ulp2, atol=0)
+        np.testing.assert_allclose(port, jax_out, rtol=ulp2, atol=0)
 
 
 class TestImage:

@@ -23,9 +23,12 @@ vs_baseline = measured fps / 0.249.
 Prints ONE json line on stdout; everything else goes to stderr.
 
 Against bench.py (deliberate):
-- No scene cache on disk.  bench.py pickles its scene to /tmp, and that
+- The scene cache on disk is the port's own: numpy arrays in
+  `<tempdir>/vdo_torch_bench_scene_<n>_<W>x<H>[_hard].npz`, keyed on the
+  values (n_frames, width, height, hard) and loaded without unpickling
+  anything (`bench_scene`).  bench.py pickles its scene to /tmp, and that
   pickle holds the JAX package's SyntheticScene; this bench never reads
-  it.  The scene is made once per process (`bench_scene`).
+  it.
 - The solver warmups are one window solve and one full BA on a copy of
   the map after the warm frames (`_warm_solvers`): eager PyTorch compiles
   nothing, but a device's first solve pays one-time costs.
@@ -44,7 +47,9 @@ import functools
 import json
 import os
 import sys
+import tempfile
 import time
+import zipfile
 
 import numpy as np
 
@@ -72,20 +77,59 @@ def bench_scene(n_frames: int = N_FRAMES, width: int = W, height: int = H,
     """bench.py's scene (bench.py:237-257): n_frames + 1 frames, 3
     objects, seed 7; `hard` degrades its inputs as --hard does (flow sigma
     0.75 px, 1 % outliers, masks eroded and jittered by 1 px, seed 13).
-    Made once per process."""
+    Made once per process, and cached on disk across processes
+    (`scene_cache_path`), as bench.py caches its own (bench.py:69-75)."""
     return _scene(n_frames, width, height, hard)
+
+
+def scene_cache_path(n_frames: int, width: int, height: int,
+                     hard: bool) -> str:
+    """Where bench_scene keeps the scene of these values on disk."""
+    name = (f"vdo_torch_bench_scene_{n_frames}_{width}x{height}"
+            f"{'_hard' if hard else ''}.npz")
+    return os.path.join(tempfile.gettempdir(), name)
 
 
 @functools.lru_cache(maxsize=4)
 def _scene(n_frames: int, width: int, height: int, hard: bool):
-    from .io.synthetic import degrade_scene, make_scene
+    from .io.synthetic import SyntheticScene, degrade_scene, make_scene
 
+    path = scene_cache_path(n_frames, width, height, hard)
+    fields = [f.name for f in dataclasses.fields(SyntheticScene)]
+    t0 = time.perf_counter()
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            scene = SyntheticScene(**{k: z[k] for k in fields})
+        log(f"scene loaded from {path} in {time.perf_counter() - t0:.1f}s")
+        return scene
+    except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile):
+        pass        # absent, or not this layout: make it anew
     if hard:
-        return degrade_scene(_scene(n_frames, width, height, False),
-                             flow_noise_px=0.75, flow_outlier_frac=0.01,
-                             mask_erode_px=1, mask_jitter_px=1, seed=13)
-    return make_scene(num_frames=n_frames + 1, width=width, height=height,
-                      num_objects=3, fx=FX, seed=7)
+        scene = degrade_scene(_scene(n_frames, width, height, False),
+                              flow_noise_px=0.75, flow_outlier_frac=0.01,
+                              mask_erode_px=1, mask_jitter_px=1, seed=13)
+    else:
+        scene = make_scene(num_frames=n_frames + 1, width=width,
+                           height=height, num_objects=3, fx=FX, seed=7)
+    log(f"scene made in {time.perf_counter() - t0:.1f}s")
+    _write_scene(path, scene, fields)
+    return scene
+
+
+def _write_scene(path: str, scene, fields) -> None:
+    """Save the scene's arrays to `path` atomically (a temporary file in the
+    same directory, then a rename), so that a process that reads the cache
+    never sees half a file.  A cache that cannot be written is skipped."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path),
+                               prefix=".vdo_torch_scene_", suffix=".npz")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **{k: getattr(scene, k) for k in fields})
+        os.replace(tmp, path)
+    except OSError as e:
+        log(f"scene cache not written ({e})")
+        with contextlib.suppress(OSError):
+            os.remove(tmp)
 
 
 def _base_config(width: int, height: int, **tracking):
@@ -233,14 +277,27 @@ def _device(device):
     return device
 
 
-def _on_callers_streams(msys, fn):
+def card_line(device) -> str:
+    """The card as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` gives it, for a CUDA device; else the device."""
+    import subprocess
+
+    if device.type != "cuda":
+        return str(device)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[device.index or 0]
+
+
+def on_callers_streams(devices, fn):
     """fn, for another thread, run on this thread's current CUDA stream of
-    each stream group's device: the copies it queues are then ordered
-    before the batched step that this thread queues after it returns."""
+    each of `devices`: the copies it queues are then ordered before the
+    work that this thread queues after it returns."""
     import torch
 
-    streams = [torch.cuda.current_stream(g.device) for g in msys.groups
-               if g.device.type == "cuda"]
+    streams = [torch.cuda.current_stream(d) for d in devices
+               if d.type == "cuda"]
 
     def run(*a):
         with contextlib.ExitStack() as stack:
@@ -308,7 +365,7 @@ def bench_multistream(n_streams: int, n_frames: int = N_STREAM_FRAMES,
     log(f"window-BA warmup: {_warm_solvers(firsts.values(), cfg, False):.1f}s")
 
     uploader = ThreadPoolExecutor(1)  # see MultiStreamSystem.run
-    stage = _on_callers_streams(msys, msys._stage)
+    stage = on_callers_streams([g.device for g in msys.groups], msys._stage)
     t0 = time.perf_counter()
     try:
         for i in range(WARM, n_frames):

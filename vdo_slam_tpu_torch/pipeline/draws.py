@@ -18,10 +18,14 @@ them draws what it drew before they existed).  The JAX tracker
 pre-splits MAX_FRAMES keys and frame f uses key f % MAX_FRAMES
 (fused.py:160-164, 445, 501-506);
 here frame f's draws are a function of (cfg.seed, f % MAX_FRAMES) alone:
-they do not depend on the chunk size, on a padded tail chunk, or on
-whether the frame runs alone or as one stream of a batch.  Drawn outside
-the step, they can also be mapped over streams by `torch.func.vmap`,
-which a generator cannot.
+they do not depend on the chunk size, on a padded tail chunk, on whether
+the frame runs alone or as one stream of a batch, or on the device.  They
+are drawn by a CPU generator and copied to the step's device: a CUDA
+generator draws other numbers for the same seed, so draws made on the
+card would make a run there and the same run on the CPU two different
+random realizations (jax.random draws the same bits on every backend).
+Drawn outside the step, they can also be mapped over streams by
+`torch.func.vmap`, which a generator cannot.
 """
 
 from __future__ import annotations
@@ -88,17 +92,23 @@ def normal_shapes(cfg: VDOConfig) -> dict:
 
 
 def frame_uniforms(cfg: VDOConfig, frame_id: int,
-                   generator: torch.Generator) -> dict:
-    """The draws of frame `frame_id`, in a fixed order from `generator`
-    re-seeded with (cfg.seed, frame_id mod MAX_FRAMES): the uniform [0, 1)
-    tensors of `uniform_shapes`, then the normals of `normal_shapes`."""
+                   generator: torch.Generator, device=None) -> dict:
+    """The draws of frame `frame_id`, in a fixed order from the CPU
+    `generator` re-seeded with (cfg.seed, frame_id mod MAX_FRAMES): the
+    uniform [0, 1) tensors of `uniform_shapes`, then the normals of
+    `normal_shapes`; on `device` (default the CPU), copied there from
+    pinned memory without waiting for the device."""
+    if generator.device.type != "cpu":
+        raise ValueError("frame_uniforms draws on a CPU generator, so that "
+                         "a frame's draws do not depend on the device")
     generator.manual_seed(cfg.seed * MAX_FRAMES + frame_id % MAX_FRAMES)
-    out = {name: torch.rand(shape, generator=generator,
-                            device=generator.device)
+    out = {name: torch.rand(shape, generator=generator)
            for name, shape in uniform_shapes(cfg).items()}
-    out.update({name: torch.randn(shape, generator=generator,
-                                  device=generator.device)
+    out.update({name: torch.randn(shape, generator=generator)
                 for name, shape in normal_shapes(cfg).items()})
+    if device is not None and torch.device(device).type == "cuda":
+        out = {k: v.pin_memory().to(device, non_blocking=True)
+               for k, v in out.items()}
     return out
 
 

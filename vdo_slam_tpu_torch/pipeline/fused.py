@@ -14,7 +14,8 @@ one it was given and `flush` reports the last.
 `grab_chunk` runs `fused_chunk` frames per call.  The JAX package unrolls
 a lax.scan over the chunk inside one program; eager PyTorch has nothing to
 unroll, so the chunk goes up in one (C, wire_len) transfer, its frames are
-stepped in a Python loop with no host sync between them, and the C output
+stepped in a Python loop with no host sync between them (`step_chunk`, the
+counterpart of the JAX tracker's jitted scan), and the C output
 vectors are stacked on the device and copied back in one transfer.  Finished chunks
 wait in a batch; every `fused_drain_chunks`-th chunk the batch is archived
 in frame order.  The JAX package fetches and archives a batch on a drainer
@@ -148,7 +149,7 @@ class FusedTracker:
             self.step = make_frame_step(cfg, self.device, packed=True)
             self.state = make_stream_state(cfg, self.device)
         self.initialized = False  # the JAX state's flag, kept on the host
-        self._generator = torch.Generator(device=self.device)
+        self._generator = torch.Generator()   # CPU: pipeline/draws.py
         self.frame_id = 0
         self.origin_inv: np.ndarray | None = None
         # GT sem labels of the last STAGED frame (staging runs strictly in
@@ -236,7 +237,8 @@ class FusedTracker:
 
     def frame_draws(self, frame_id: int) -> dict:
         """The uniform draws of frame `frame_id` (pipeline/draws.py)."""
-        return draws_mod.frame_uniforms(self.cfg, frame_id, self._generator)
+        return draws_mod.frame_uniforms(self.cfg, frame_id, self._generator,
+                                        self.device)
 
     def probe_inputs(self, fd: FrameData):
         """(staged inputs, draws) of `fd` as the tracker's next frame, for
@@ -249,7 +251,7 @@ class FusedTracker:
         self._stage_last_sems = saved_sems
         staged.pop("_T_cw_gt_host")
         draws = draws_mod.UniformDraws(draws_mod.frame_uniforms(
-            self.cfg, self.frame_id, torch.Generator(device=self.device)))
+            self.cfg, self.frame_id, torch.Generator(), self.device))
         return staged, draws
 
     def calibrate_stage_times(self, fd: FrameData, rounds: int = 2,
@@ -314,6 +316,25 @@ class FusedTracker:
             rep_prev = {"frame_id": -1, "pipelining": True}
         return rep_prev
 
+    def step_chunk(self, state, inputs: dict, first_frame_id: int):
+        """Step a staged chunk (`device_inputs_chunk` without its
+        "_T_cw_gt_host") from `state`, frame first_frame_id + c taking
+        that frame's draws, with no host sync between frames: the
+        counterpart of the JAX tracker's jitted scan (fused.py:133-145).
+        Returns (state, the (C, n) stacked output vectors, still on the
+        device).  The first frame starts uninitialized only if the tracker
+        has stepped no frame yet."""
+        vecs = []
+        for c in range(inputs["packed"].shape[0]):
+            draws = draws_mod.UniformDraws(
+                self.frame_draws(first_frame_id + c))
+            state, metrics = self.step(
+                state, {k: v[c] for k, v in inputs.items()}, draws,
+                self.initialized)
+            self.initialized = True
+            vecs.append(pack_outputs(state, metrics))
+        return state, torch.stack(vecs)
+
     def grab_chunk(self, fds, staged: dict | None = None,
                    n_real: int | None = None) -> list[dict]:
         """len(fds) == fused_chunk frames in one call; returns the reports
@@ -333,15 +354,8 @@ class FusedTracker:
         inputs = dict(staged) if staged is not None \
             else self.device_inputs_chunk(fds)
         gts = inputs.pop("_T_cw_gt_host")
-        vecs = []
-        for c in range(self.chunk):      # no host sync between frames
-            draws = draws_mod.UniformDraws(self.frame_draws(self.frame_id + c))
-            self.state, metrics = self.step(
-                self.state, {k: v[c] for k, v in inputs.items()}, draws,
-                self.initialized)
-            self.initialized = True
-            vecs.append(pack_outputs(self.state, metrics))
-        host, done = self._to_host(torch.stack(vecs))   # one (C, n) copy
+        self.state, vecs = self.step_chunk(self.state, inputs, self.frame_id)
+        host, done = self._to_host(vecs)   # one (C, n) copy
         if self._pending_chunk is not None:
             self._pending_batch.append(self._pending_chunk)
             self._pending_chunk = None

@@ -120,7 +120,7 @@ class Tracker:
         self.frame_id = 0
         self.max_id = 1                    # global object-track id counter
         self.origin_inv: np.ndarray | None = None
-        self._generator = torch.Generator(device=self.device)
+        self._generator = torch.Generator()   # CPU: pipeline/draws.py
         # host mirrors of last-frame label arrays (for association)
         self._last_sem: np.ndarray | None = None
         self._last_tracks: list[ObjectTrack] = []
@@ -147,7 +147,7 @@ class Tracker:
         """The random draws of frame `self.frame_id`, taken once per frame
         by every stage of it."""
         return draws_mod.UniformDraws(draws_mod.frame_uniforms(
-            self.cfg, self.frame_id, self._generator))
+            self.cfg, self.frame_id, self._generator, self.device))
 
     def _put(self, x, dtype) -> Tensor:
         return upload(x, dtype, self.device)

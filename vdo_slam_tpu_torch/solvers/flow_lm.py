@@ -81,7 +81,8 @@ def _normal_sum(equation: str, *operands: Tensor) -> Tensor:
     float64 and rounded to float32 (see the module docstring)."""
     if not operands[0].is_cuda:
         return torch.einsum(equation, *operands)
-    return torch.einsum(equation, *[x.double() for x in operands]).float()
+    return torch.einsum(equation, *[x.double() for x in operands]).to(
+        operands[0].dtype)
 
 
 def _f32_sqrt(x: float) -> float:
@@ -119,15 +120,15 @@ def solve(T_init: Tensor, uv_last: Tensor, depth_last: Tensor,
     """
     T_wl = se3.inv(T_cw_last)
     X_w = cam.unproject_to_world(uv_last, depth_last, K, T_wl)
-    nf = flow_meas.to(torch.float32)
-    vf = valid.to(torch.float32)
+    dt, dev = T_init.dtype, T_init.device   # float32; float64 in the tests
+    nf = flow_meas.to(dt)
+    vf = valid.to(dt)
     s_p, s_f = p.info_proj, p.info_flow
-    dev = T_init.device
     batch = T_init.shape[:-2]
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
 
     T, f = T_init, nf
-    lam = torch.full(batch, p.lambda_init, dtype=torch.float32, device=dev)
+    lam = torch.full(batch, p.lambda_init, dtype=dt, device=dev)
     cost = _cost(T_init, nf, X_w, uv_last, nf, valid, K, p)
     stall = torch.zeros(batch, dtype=torch.int32, device=dev)
     for _ in range(p.iters):
