@@ -27,26 +27,36 @@ Phases, in order (any failure raises and exits nonzero):
      enable_global_ba=True, mode="fused", device="cuda") over 100 frames of
      the same scene, with the bench config plus bench.py's full-graph caps
      and tpu_fast's 4 window-BA iterations: tracking, a window solve at
-     every trigger (6 of them), the full-batch solve at the end.  Checks:
-     100 frames, one FAST launch per frame, 6 window solves none of which
-     raises the cost, a full BA that lowers it, and metrics() and
+     every trigger (6 of them, on the tracker's background solve thread
+     and its own CUDA stream), the full-batch solve at the end.  Checks:
+     100 frames, one FAST launch per frame, 6 window solves at the window
+     ends 20, 36, 52, 68, 84 and 100, none of which raises the cost,
+     ba_failures 0, a full BA that lowers it, and metrics() and
      metrics(refined=True) within the gates against the JAX package's
-     numbers.  Then, on the final map, one window solve and one full BA
-     under torch.profiler (kernel launches, device busy share), and both
-     solvers on the card against the same solve on the CPU.  The tracker
-     packs every frame into the dense (4, H, W) wire: this is the run "with
-     no wire flags and fused_chunk=1";
+     numbers; prints the seconds flush waited for solves still running.
+     Then, on the final map, one window solve and one full BA under
+     torch.profiler (kernel launches, device busy share), both solvers on
+     the card against the same solve on the CPU, and (5d) one trace of a
+     window solve on the tracker's solve thread overlapping tracking steps
+     on this thread: the solve stream non-blocking (cuStreamGetFlags), the
+     solve's kernels on a stream the steps' never use, no
+     cudaDeviceSynchronize from the solve thread.  The tracker packs every
+     frame into the dense (4, H, W) wire: this is the run "with no wire
+     flags and fused_chunk=1";
   6. the wire path, bench.py's path as bench.py configures it: phase 5's
      config with tpu_fast's wire flags (half-res delta-coded flow, entropy
      wire, drains of 8 chunks) and fused_chunk=4, over an
-     InMemoryPackedDataset of the same 100 frames.  Checks as in phase 5,
-     against the JAX package's numbers under the same config.  Prints the
+     InMemoryPackedDataset of the same 100 frames.  Checks as in phase 5
+     (window ends and ba_failures included), against the JAX package's
+     numbers under the same config.  Prints the
      upload bytes per frame, the wire decode's device time and kernel
      launches per frame for both wires, a whole step's launches, and fps;
   7. the S-stream path: MultiStreamSystem(n_streams=4, enable_local_ba=True)
      on four 40-frame windows of the packed sequence (offsets 0, 7, 14, 21,
-     as bench.py --streams 4 takes them), one batched step per frame.
-     Checks: one FAST launch per frame for all four streams; every stream
+     as bench.py --streams 4 takes them), one batched step per frame, each
+     stream's window solves on its tracker's own thread and stream.
+     Checks: one FAST launch per frame for all four streams; window ends
+     20 and 36 and ba_failures 0 for every stream; every stream
      against a solo System on its window and config (each frame's pose
      within 1e-3 m and 0.01 deg, equal object-estimate counts).  Prints
      aggregate and per-stream fps beside the solo fps of the same call,
@@ -124,6 +134,10 @@ Phases, in order (any failure raises and exits nonzero):
      stage-wait; the drain, ms per frame, then run_sequence on the same
      System).  Checks: every phase time finite and >= 0, every drive
      archiving the frames it was given, one FAST launch per frame stepped.
+Phases 5-7, 12b, 13a, 13b and 14 print the seconds the tracker's thread
+waited in flush for window solves still running (chip_smoke wraps
+FusedTracker._join_ba to time it) and fail on a tracker whose
+ba_failures is not 0.
 Phase 6 ends with the fused path's stage-time probe
 (FusedTracker.calibrate_stage_times) on the wire path's tracker, where
 bench.py runs it: the seven spans, their sum against a whole step, each
@@ -383,6 +397,11 @@ PHASE13_BUDGET_S = 120
 N_PROBE_FRAMES = 24                   # phase 14: frames per probe drive
 PHASE14_BUDGET_S = 120
 STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
+# window ends (archive lengths at the triggers, Tracking.cc:1168-1183) of
+# 100 frames and of 40 frames with window 20 / overlap 4
+BA_WINDOW_ENDS = [20, 36, 52, 68, 84, 100]
+STREAM_WINDOW_ENDS = [20, 36]
+OVERLAP_STEPS = 6      # phase 5d: most tracking steps queued during a solve
 # A metric passes if it is within 2x the JAX number or under this floor,
 # whichever is looser.
 ABS_FLOOR = {"cam_t_rpe": 1e-3, "cam_r_rpe_deg": 0.01, "obj_t_rpe": 5e-3,
@@ -842,6 +861,60 @@ def gate(rep: dict, ref: dict, what: str) -> None:
     print(f"gate n_obj_estimates{what}: {rep['n_obj_estimates']} >= {need}")
 
 
+# seconds the tracker's thread waited in FusedTracker.flush for window
+# solves still running, summed over every tracker since the last read
+JOIN_WAIT = {"s": 0.0, "joins": 0}
+
+
+def time_joins() -> None:
+    """Wrap FusedTracker._join_ba (flush's wait for the window solves) so
+    that it adds its seconds to JOIN_WAIT; the package times none of it."""
+    from vdo_slam_tpu_torch.pipeline.fused import FusedTracker
+
+    join = FusedTracker._join_ba
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            join(self)
+        finally:
+            JOIN_WAIT["s"] += time.perf_counter() - t0
+            JOIN_WAIT["joins"] += 1
+
+    FusedTracker._join_ba = timed
+
+
+def join_wait(what: str, card: str) -> float:
+    """Print the flush waits since the last read, and start again at 0."""
+    s, n = JOIN_WAIT["s"], JOIN_WAIT["joins"]
+    JOIN_WAIT.update(s=0.0, joins=0)
+    print(f"{what}: the tracker's thread waited {s:.4f} s in flush for "
+          f"window solves still running ({n} tracker joins) [{card}]")
+    return s
+
+
+def record_ends(tracker) -> list:
+    """Wrap the tracker's window-BA hook so that each solve's window end
+    (n_frames) is appended to the list returned."""
+    ends, hook = [], tracker.local_ba_hook
+
+    def recording(m, n_frames=None):
+        ends.append(n_frames)
+        return hook(m, n_frames)
+
+    tracker.local_ba_hook = recording
+    return ends
+
+
+def no_ba_failures(trackers, what: str) -> None:
+    """Raise if a tracker counted a window solve that raised."""
+    failures = [t.ba_failures for t in trackers]
+    if any(failures):
+        raise RuntimeError(f"{what}: window solves failed: ba_failures "
+                           f"{failures}")
+    print(f"{what}: ba_failures {failures}")
+
+
 def _profiled(fn, what: str, host_ops: bool = True):
     """fn() once under torch.profiler: (result, kernel launches, device ms,
     wall ms), and a line of the operators the host called most.  Launches
@@ -938,6 +1011,7 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
     sysm = System(cfg, enable_local_ba=True, enable_global_ba=True,
                   mode="fused", device=device)
     C = sysm.tracker.chunk
+    ends = record_ends(sysm.tracker)
     kept = {"s": 0.0}
     if keep_map:
         full_ba = sysm._full_ba
@@ -952,11 +1026,13 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0
+    JOIN_WAIT.update(s=0.0, joins=0)
     t0 = time.perf_counter()
     reports = sysm.run_sequence(ds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - kept["s"]
     launches = KERNEL.launches
+    waited = join_wait(what, card)
     peak = torch.cuda.max_memory_allocated()
     health, full = sysm.tracker.ba_health, sysm.full_ba_report
     tr = cfg.tracking
@@ -981,6 +1057,12 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
         raise RuntimeError("the reports are not in frame order")
     if len(health) != want:
         raise RuntimeError(f"{len(health)} window solves, want {want}")
+    no_ba_failures([sysm.tracker], what)
+    print(f"{what}: window ends {ends}, each solve on the tracker's solve "
+          f"thread and stream")
+    if n == N_BA_FRAMES and ends != BA_WINDOW_ENDS:
+        raise RuntimeError(f"{what}: window ends {ends}, want "
+                           f"{BA_WINDOW_ENDS}")
     for i, (h, ms) in enumerate(zip(health, sysm.map.lba_times)):
         j0, j1 = (ref["window_cost"][i] if n == N_BA_FRAMES
                   else (math.nan, math.nan))
@@ -1010,7 +1092,7 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
         gate(metrics["initial"], ref["initial"], f" ({what}, before full BA)")
         gate(metrics["refined"], ref["refined"], f" ({what}, refined)")
     out = {"fast_launches": launches, "peak_bytes": peak, "wall_s": wall,
-           "metrics": metrics, "system": sysm,
+           "metrics": metrics, "system": sysm, "join_wait_s": waited,
            "pre_full_map": kept.get("map")}
     if not solvers:
         return out
@@ -1030,8 +1112,144 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
           f"and fetch included), {fdev:.3f} ms on the device in "
           f"{fwall:.3f} ms, busy share {fdev / fwall:.4f} [{card}]")
     out.update(window_launches=wl, full_launches_per_iter=fl / it,
-               gap=solver_gap(m, cfg, device, card))
+               gap=solver_gap(m, cfg, device, card),
+               overlap=solve_overlap(sysm, ds, card))
     return out
+
+
+def _stream_nonblocking(stream) -> bool:
+    """Whether `stream` was made with CU_STREAM_NON_BLOCKING (libcuda's
+    cuStreamGetFlags), i.e. does not synchronize with the legacy default
+    stream."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuStreamGetFlags.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_uint)]
+    cuda.cuStreamGetFlags.restype = ctypes.c_int
+    flags = ctypes.c_uint()
+    rc = cuda.cuStreamGetFlags(ctypes.c_void_p(stream.cuda_stream),
+                               ctypes.byref(flags))
+    if rc != 0:
+        raise RuntimeError(f"cuStreamGetFlags returned {rc}")
+    return bool(flags.value & 1)
+
+
+def _trace_tids() -> set:
+    """The ids under which torch.profiler's trace names the calling
+    thread's CUDA runtime calls: the low 32 bits of its pthread id (as the
+    trace prints them) or its kernel thread id."""
+    import ctypes
+    import threading
+
+    return {abs(ctypes.c_int32(threading.get_ident()).value),
+            threading.get_native_id()}
+
+
+def attribute_trace(events, tids: dict):
+    """A chrome trace's kernels by the thread that launched them: each
+    kernel is matched to the API call that launched it by correlation id,
+    and the call's thread to a key of `tids` ({key: set of trace thread
+    ids}; "other" if none).  Returns ({key: Counter of stream ids},
+    {key: [(start, end) us of each kernel]}, Counter of (synchronize call,
+    key))."""
+    import collections
+
+    def who(tid):
+        return next((k for k, v in tids.items() if tid in v), "other")
+
+    runtime = [e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    launcher = {e["args"]["correlation"]: who(e.get("tid"))
+                for e in runtime if "correlation" in e.get("args", {})}
+    streams = collections.defaultdict(collections.Counter)
+    spans = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = launcher.get(e["args"].get("correlation"), "other")
+            streams[k][e["args"].get("stream")] += 1
+            spans[k].append((e["ts"], e["ts"] + e.get("dur", 0.0)))
+    syncs = collections.Counter((e["name"], who(e.get("tid")))
+                                for e in runtime
+                                if e["name"].endswith("Synchronize"))
+    return streams, spans, syncs
+
+
+def solve_overlap(sysm, ds, card: str) -> dict:
+    """Phase 5d: a window solve on the tracker's own solve thread while
+    this thread, the tracker's, queues tracking steps, under torch.profiler
+    (CUDA activity, the runtime calls included).  Checks: the solve stream
+    is a non-blocking stream; the solve's kernels ran on a stream of their
+    own, which no kernel of the steps used; the solve thread called no
+    cudaDeviceSynchronize.  The solve refines a copy of the final map (the
+    window of its last 20 frames); the steps start from the tracker's
+    state, with its last frame as input, and are thrown away."""
+    import copy
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = sysm.tracker
+    if not _stream_nonblocking(tr.ba_stream):
+        raise RuntimeError("the solve stream synchronizes with the legacy "
+                           "default stream")
+    staged, draws = tr.probe_inputs(ds[len(ds) - 1])
+    saved_map, hook = tr.map, tr.local_ba_hook
+    tids = {"tracker": _trace_tids()}
+
+    def hook_noting(m, n_frames=None):
+        tids["solve"] = _trace_tids()
+        return hook(m, n_frames)
+
+    tr.map, tr.local_ba_hook = copy.deepcopy(saved_map), hook_noting
+    steps = 0
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr._queue_ba(tr.map.num_frames)
+            while steps < OVERLAP_STEPS and (steps == 0 or tr._ba_thread):
+                tr.step(tr.state, staged, draws, True)
+                steps += 1
+            tr.flush()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "overlap.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        tr.map, tr.local_ba_hook = saved_map, hook
+    if tr.ba_failures:
+        raise RuntimeError("phase 5d: the solve failed")
+    streams, spans, syncs = attribute_trace(events, tids)
+    solve_k, step_k = sum(streams["solve"].values()), sum(
+        streams["tracker"].values())
+    lo = min((a for a, _ in spans["solve"]), default=0.0)
+    hi = max((b for _, b in spans["solve"]), default=0.0)
+    inside = sum(1 for a, _ in spans["tracker"] if lo <= a <= hi)
+    print(f"5d, a window solve on the solve thread overlapping {steps} "
+          f"tracking steps, torch.profiler: {wall:.3f} ms; solve kernels "
+          f"by stream {dict(streams['solve'])}, the steps' "
+          f"{dict(streams['tracker'])}, unattributed "
+          f"{sum(streams['other'].values())}; {inside} of the steps' "
+          f"{step_k} kernels started while the solve's kernels ran; "
+          f"synchronize calls by thread {dict(syncs)} [{card}]")
+    if not (solve_k and step_k):
+        raise RuntimeError(f"phase 5d: {solve_k} solve kernels and {step_k} "
+                           f"step kernels in the trace")
+    if set(streams["solve"]) & set(streams["tracker"]):
+        raise RuntimeError("phase 5d: the solve's kernels share a stream "
+                           "with the tracking steps")
+    if syncs[("cudaDeviceSynchronize", "solve")]:
+        raise RuntimeError("phase 5d: the solve thread called "
+                           "cudaDeviceSynchronize")
+    return {"steps": steps, "solve_kernels": solve_k, "step_kernels": step_k,
+            "step_kernels_during_solve": inside,
+            "solve_streams": sorted(streams["solve"]),
+            "step_streams": sorted(streams["tracker"])}
 
 
 def wire_costs(pds, dense_ds, cfgs: dict, device, card: str) -> dict:
@@ -1100,14 +1318,22 @@ def stream_path(pds, cfg, device, card: str) -> dict:
              for off in stream_offsets(len(pds))]
     msys = MultiStreamSystem(cfg, n_streams=N_STREAMS, enable_local_ba=True,
                              device=device)
+    ends = [record_ends(t) for t in msys.trackers]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0
+    JOIN_WAIT.update(s=0.0, joins=0)
     fps, (first, rest) = _timed_run(msys.run, views)
     reps = [a + b for a, b in zip(first, rest)]
     launches = KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
+    waited = join_wait(f"S={N_STREAMS} path", card)
     agg_fps = fps * N_STREAMS
+    no_ba_failures(msys.trackers, f"S={N_STREAMS} path")
+    print(f"S={N_STREAMS} path: window ends per stream {ends}")
+    if any(e != STREAM_WINDOW_ENDS for e in ends):
+        raise RuntimeError(f"window ends per stream {ends}, want "
+                           f"{STREAM_WINDOW_ENDS} for each")
     print(f"S={N_STREAMS} path: {N_STREAM_FRAMES} frames per stream, "
           f"{launches} FAST kernel launches ({launches / N_STREAM_FRAMES:.3f} "
           f"per frame for all {N_STREAMS} streams); aggregate "
@@ -1150,6 +1376,7 @@ def stream_path(pds, cfg, device, card: str) -> dict:
                 f"estimates, its solo run {sm['n_obj_estimates']}")
         if len(msys.trackers[st].ba_health) != len(solo.tracker.ba_health):
             raise RuntimeError(f"stream {st}: window solve counts differ")
+        no_ba_failures([solo.tracker], f"solo {st}")
         last_solo = solo
     mean_solo = float(np.mean(solo_fps))
     print(f"S={N_STREAMS} aggregate {agg_fps:.3f} fps against the solo runs' "
@@ -1174,7 +1401,7 @@ def stream_path(pds, cfg, device, card: str) -> dict:
           f"{sdev / swall:.4f} [{card}]")
     return {"launches": launches, "agg_fps": agg_fps, "solo_fps": mean_solo,
             "peak_bytes": peak, "step_launches": ml, "busy": mdev / mwall,
-            "worst_gap": worst}
+            "worst_gap": worst, "join_wait_s": waited}
 
 
 def _count_syncs(prof) -> tuple[int, int]:
@@ -1931,11 +2158,14 @@ def grouped_streams(pds, cfg, device, card: str) -> dict:
                                f"{groups}")
         torch.cuda.synchronize()
         KERNEL.launches = 0
+        JOIN_WAIT.update(s=0.0, joins=0)
         t0 = time.perf_counter()
         msys.run(views)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = KERNEL.launches
+        join_wait(f"S={N_STREAMS} in {groups} group(s)", card)
+        no_ba_failures(msys.trackers, f"S={N_STREAMS} in {groups} group(s)")
         agg = N_STREAMS * N_GROUPED_FRAMES / wall
         print(f"S={N_STREAMS} in {groups} group(s): {launches} FAST launches "
               f"in {N_GROUPED_FRAMES} frames; {agg:.3f} aggregate fps (host "
@@ -2065,11 +2295,14 @@ def bench_hard(device, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0
+    JOIN_WAIT.update(s=0.0, joins=0)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         res = port_bench.main(hard=True, device=device)
     secs = time.perf_counter() - t0
     launches = KERNEL.launches
+    join_wait("bench --hard (warm and timed run_sequence)", card)
+    no_ba_failures([res["system"].tracker], "bench --hard")
     peak = torch.cuda.max_memory_allocated()
     rec = _bench_record(buf.getvalue(), "kitti_synth_hard_fps")
     n = res["frames"]
@@ -2122,12 +2355,15 @@ def bench_throughput(device, card: str, peak_s4: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0
+    JOIN_WAIT.update(s=0.0, joins=0)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         res = port_bench.bench_multistream(N_THROUGHPUT, tag="_throughput",
                                            device=device)
     secs = time.perf_counter() - t0
     launches = KERNEL.launches
+    join_wait(f"bench --throughput (S={N_THROUGHPUT})", card)
+    no_ba_failures(res["system"].trackers, "bench --throughput")
     peak = torch.cuda.max_memory_allocated()
     rec = _bench_record(
         buf.getvalue(),
@@ -2272,15 +2508,18 @@ def probes(device, card: str) -> dict:
     for name, tool in (("probe_loop", probe_loop),
                        ("probe_chunk", probe_chunk)):
         KERNEL.launches = 0
+        JOIN_WAIT.update(s=0.0, joins=0)
         t0 = time.perf_counter()
         res = tool.main(n_frames=N_PROBE_FRAMES, device=device)
         secs = time.perf_counter() - t0
         launches = KERNEL.launches
+        join_wait(name, card)
         print(f"{card} | {name} in {secs:.1f} s: " + ", ".join(
             f"{k} {v:.4f}" for k, v in res.items() if isinstance(v, float)))
         for d in res["drives"]:
             print(f"{card} | {name}, {d['what']}: {d['archived']} of "
-                  f"{d['given']} frames archived, {d['steps']} stepped")
+                  f"{d['given']} frames archived, {d['steps']} stepped, "
+                  f"ba_failures {d['ba_failures']}")
         if "chunk_ms" in res:
             print(f"{card} | {name}, per chunk (submit, grab_chunk, "
                   f"stage-wait ms): " + "; ".join(
@@ -2293,6 +2532,9 @@ def probes(device, card: str) -> dict:
             if d["archived"] != d["given"]:
                 raise RuntimeError(f"{name}, {d['what']}: {d['archived']} "
                                    f"frames archived, {d['given']} given")
+            if d["ba_failures"]:
+                raise RuntimeError(f"{name}, {d['what']}: ba_failures "
+                                   f"{d['ba_failures']}")
         if launches != res["steps"]:
             raise RuntimeError(f"{name}: {launches} FAST launches for "
                                f"{res['steps']} frames stepped")
@@ -2327,6 +2569,7 @@ def main() -> int:
 
     KERNEL.build()
     print(f"FAST kernel built and loaded in {KERNEL.build_seconds:.2f} s")
+    time_joins()
     for line in KERNEL.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}")

@@ -266,9 +266,7 @@ class TestLongSequence:
         expected = (n - tr.overlap_size) // (tr.window_size
                                              - tr.overlap_size)
         assert len(sysm.map.lba_times) >= expected - 1
-        # a solve that raises fails the port's run (pipeline/fused.py), so
-        # the JAX test's ba_failures == 0 is: every trigger has its report
-        assert len(sysm.tracker.ba_health) == len(sysm.map.lba_times)
+        assert sysm.tracker.ba_failures == 0
         # per-frame error must not trend upward (no feedback loop): the
         # last-quarter mean stays within 3x the first-quarter mean
         rpes = np.array([r["t_rpe"] for r in reports if "t_rpe" in r])

@@ -8,7 +8,9 @@ S-stream system on the card against the same on the CPU, the host Tracker
 one FAST launch per frame (none with grid-sampled keypoints) and its
 one-copy host reads, one frame of a barrel-distorted bench scene stepped
 from one state on the card and on the CPU, both BA solvers on the card
-against the same solve on the CPU, the edge-sharded full solve and
+against the same solve on the CPU, a window solve on a fused tracker's
+solve thread and stream against the same solve inline, the edge-sharded
+full solve and
 full_ba_inplace over ["cuda:0"] * n, and S = 2 streams spread over
 ["cuda:0", "cuda:0"] (two FAST launches per frame) against one group on
 the card.  Every test here skips without a
@@ -552,6 +554,52 @@ def test_full_solve_on_card_matches_cpu(tracked_map):
     assert meta.n_motions >= 2
     p = scaled_lm_params(cfg, g.obs_w.shape[0])
     _solve_both(lambda gg, vv: lm_solve_chunked(gg, vv, p, chunk=3), g, v)
+
+
+def test_window_solve_on_its_thread_and_stream(tracked_map):
+    """A window end queued on a fused tracker is solved on the tracker's
+    solve thread, on its own CUDA stream (not the default one), and the
+    result matches the same solve inline on the card within the bounds
+    above."""
+    import copy
+    import threading
+
+    from vdo_slam_tpu_torch.backend.window_ba import local_ba_inplace
+
+    m, cfg = tracked_map
+    n = m.num_frames
+    m_thread, m_inline = copy.deepcopy(m), copy.deepcopy(m)
+    tr = FusedTracker(cfg, m_thread, device="cuda", build_step=False)
+    seen = {}
+
+    def hook(mm, n_frames):
+        seen["stream"] = torch.cuda.current_stream().cuda_stream
+        seen["thread"] = threading.current_thread()
+        return local_ba_inplace(mm, cfg, window=6, n_frames=n_frames,
+                                device="cuda")
+
+    tr.local_ba_hook = hook
+    tr._queue_ba(n)
+    with tr._ba_lock:
+        th = tr._ba_thread
+    if th is not None:
+        th.join(120)
+        assert not th.is_alive()
+    tr.flush()
+    assert tr.ba_failures == 0 and len(tr.ba_health) == 1
+    assert seen["thread"] is not threading.current_thread()
+    assert seen["stream"] == tr.ba_stream.cuda_stream
+    assert seen["stream"] != torch.cuda.default_stream().cuda_stream
+    inline = local_ba_inplace(m_inline, cfg, window=6, n_frames=n,
+                              device="cuda")
+    h = tr.ba_health[0]
+    assert h["cost0"] == pytest.approx(inline["cost0"], rel=1e-5)
+    assert abs(h["cost"] - inline["cost"]) <= 1e-4 * inline["cost0"]
+    assert h["cost"] < h["cost0"]
+    np.testing.assert_allclose(np.stack(m_thread.cam_pose),
+                               np.stack(m_inline.cam_pose), atol=1e-4)
+    for a, b in zip(m_thread.stat_3d, m_inline.stat_3d):
+        np.testing.assert_allclose(a, b, atol=1e-3, rtol=2e-4)
 
 
 @pytest.mark.parametrize("n_dev", [2, 4])

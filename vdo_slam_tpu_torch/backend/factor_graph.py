@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 
 import numpy as np
 import torch
@@ -52,6 +53,11 @@ from ..devices import device_list
 from ..geometry import se3
 
 Tensor = torch.Tensor
+# torch's forward-AD levels are numbered process-wide, not per thread: two
+# threads inside jacfwd at once (the window solves of two streams, each on
+# its tracker's solve thread) enter and leave each other's level and fail.
+# Every jacfwd goes through _edge_jac, which takes this lock.
+_FORWARD_AD = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -321,8 +327,9 @@ def _edge_jac(r_fn, argnum, z, *args):
     per-edge tensors: PyTorch's forward-mode rules for a 0-dim float32
     tensor and a Python float (x / 6.0, x * 0.5, x + 1.0) return a float64
     tangent, and se3.py's Taylor branches do that with per-edge angles."""
-    J = vmap(jacfwd(r_fn, argnums=argnum))(z[:, None],
-                                           *[a[:, None] for a in args])
+    with _FORWARD_AD:
+        J = vmap(jacfwd(r_fn, argnums=argnum))(z[:, None],
+                                               *[a[:, None] for a in args])
     return J[:, 0, :, 0, :]
 
 

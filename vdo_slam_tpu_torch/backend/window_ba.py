@@ -37,17 +37,21 @@ def _lm_params(cfg: VDOConfig, iters: int | None = None) -> LMParams:
 
 
 def _sync(device: torch.device) -> None:
+    """Wait for the work queued on torch's current stream of `device`, the
+    stream the solve was queued on, and for nothing else: a solve on a
+    thread and stream of its own must not wait for the tracking steps."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
                      iters: int | None = None, solver: str = "schur",
                      n_frames: int | None = None, device="cuda") -> dict:
     """n_frames pins the window end (see build_window_graph); write-back
-    touches only frames < n_frames.  The report's phases: host graph build,
-    upload and dispatch of the solve, the wait for the device (a
-    synchronize), the fetch of the results, and the write-back."""
+    touches only frames < n_frames.  The solve's work goes to torch's
+    current stream of `device`.  The report's phases: host graph build,
+    upload and dispatch of the solve, the wait for that stream, the fetch
+    of the results, and the write-back."""
     device = torch.device(device)
     t0 = time.perf_counter()
     graph, v0, meta = build_window_graph(m, cfg, window, n_frames=n_frames)

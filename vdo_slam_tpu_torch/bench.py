@@ -29,9 +29,11 @@ Against bench.py (deliberate):
   anything (`bench_scene`).  bench.py pickles its scene to /tmp, and that
   pickle holds the JAX package's SyntheticScene; this bench never reads
   it.
-- The solver warmups are one window solve and one full BA on a copy of
-  the map after the warm frames (`_warm_solvers`): eager PyTorch compiles
-  nothing, but a device's first solve pays one-time costs.
+- The solver warmups are one window solve per tracker (on a thread and
+  the tracker's solve stream, where its solves run) and one full BA, on
+  copies of the maps after the warm frames (`_warm_solvers`): eager
+  PyTorch compiles nothing, but a device's first solve pays one-time
+  costs.
 - A failing stage probe fails the run (bench.py logs it and goes on);
   VDO_BENCH_NO_PROBE=1 still skips it.
 - --streams stages the next frame on one uploader thread as bench.py
@@ -307,24 +309,35 @@ def on_callers_streams(devices, fn):
     return run
 
 
-def _warm_solvers(maps_devices, cfg, full: bool) -> float:
+def _warm_solvers(trackers, cfg, full: bool) -> float:
     """The counterpart of bench.py's solver warmups (bench.py:118,
-    305-325): one window solve, and with `full` one full BA, on a copy of
-    each (map, device) after the warm frames, thrown away.  The solvers'
-    one-time costs on a device (library handles, the first launch of each
-    kernel, the allocator's growth) then fall before the timed region:
-    measured on the card, the first window solve of a fresh process took
-    6-9x the median of the rest without this.  Returns the seconds."""
+    305-325): for each fused tracker, one window solve, and with `full`
+    one full BA, on a copy of its map after the warm frames, thrown away.
+    The solvers' one-time costs on a device (library handles, the first
+    launch of each kernel, the allocator's growth) then fall before the
+    timed region: measured on the card, the first window solve of a fresh
+    process took 6-9x the median of the rest without this.  The window
+    solve runs as the tracker's solves run, on a thread of its own on the
+    tracker's solve stream (`FusedTracker.ba_context`): the allocator keeps
+    its pools per stream, and a thread's library handles go back to a pool
+    that the next solve thread takes from.  The full BA runs where
+    run_sequence runs it, on this thread.  Returns the seconds."""
     import copy
+    from concurrent.futures import ThreadPoolExecutor
 
     from .backend.full_ba import full_ba_inplace
     from .backend.window_ba import local_ba_inplace
 
+    def window(t):
+        with t.ba_context():
+            local_ba_inplace(copy.deepcopy(t.map), cfg, device=t.device)
+
     t0 = time.perf_counter()
-    for m, device in maps_devices:
-        local_ba_inplace(copy.deepcopy(m), cfg, device=device)
+    for t in trackers:
+        with ThreadPoolExecutor(1) as pool:
+            pool.submit(window, t).result()
         if full:
-            full_ba_inplace(copy.deepcopy(m), cfg, device=device)
+            full_ba_inplace(copy.deepcopy(t.map), cfg, device=t.device)
     return time.perf_counter() - t0
 
 
@@ -360,9 +373,7 @@ def bench_multistream(n_streams: int, n_frames: int = N_STREAM_FRAMES,
         staged = msys._stage([d[i + 1] for d in datasets])
         log(f"  warm frame {i}: +{time.perf_counter() - t0:.1f}s")
     log(f"multistream warmup (S={n_streams}): {time.perf_counter() - t0:.1f}s")
-    firsts = {str(g.device): (g.trackers[0].map, g.device)
-              for g in msys.groups}
-    log(f"window-BA warmup: {_warm_solvers(firsts.values(), cfg, False):.1f}s")
+    log(f"window-BA warmup: {_warm_solvers(msys.trackers, cfg, False):.1f}s")
 
     uploader = ThreadPoolExecutor(1)  # see MultiStreamSystem.run
     stage = on_callers_streams([g.device for g in msys.groups], msys._stage)
@@ -387,7 +398,8 @@ def bench_multistream(n_streams: int, n_frames: int = N_STREAM_FRAMES,
     for s, p in enumerate(m["per_stream"]):
         log(f"  stream {s}: {p}")
     log(f"aggregate accuracy: {m['aggregate']}  window solves: "
-        f"{[len(t.ba_health) for t in msys.trackers]}")
+        f"{[len(t.ba_health) for t in msys.trackers]}  ba_failures: "
+        f"{[t.ba_failures for t in msys.trackers]}")
     rec = _record(metric_name(n_streams=n_streams, tag=tag), fps)
     return {"record": rec, "system": msys, "offsets": offsets,
             "metrics": m}
@@ -440,7 +452,7 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     sysm.run_sequence(pds, max_frames=n_warm)
     log(f"warmup {n_warm} frames: {time.perf_counter() - t0:.1f}s")
     log(f"window- and full-BA warmup: "
-        f"{_warm_solvers([(sysm.map, device)], cfg, True):.1f}s")
+        f"{_warm_solvers([sysm.tracker], cfg, True):.1f}s")
 
     n_timed = len(pds) - n_warm
     n_solves = len(sysm.map.lba_times)
@@ -459,7 +471,8 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     wb = sysm.tracker.ba_health
     if wb:
         h = wb[-1]
-        log(f"window-BA health: {len(wb)} solves; last window: cost "
+        log(f"window-BA health: {len(wb)} solves, "
+            f"{sysm.tracker.ba_failures} failures; last window: cost "
             f"{h['cost0']:.3e} -> {h['cost']:.3e}  points {h['n_points']}  "
             f"tracks_dropped {h['n_tracks_dropped']}")
         log(format_edge_stats(h["edge_stats0"], h["edge_stats"]))

@@ -22,15 +22,22 @@ of devices, with every stream's data sharded over it (multisystem.py:
 contiguous groups of S / n_dev, and group k's stacked state, upload,
 batched step (one FAST launch) and output copy all live on devices[k]; one
 process drives every group, as one JAX process drives the mesh
-(vdo_slam_tpu_torch/devices.py says why not a process group).  Each
-stream's window BA runs on its group's device.  The list may repeat a
-device: one card (or the CPU) then runs the groups one after another.
-devices=None takes every visible card on a CUDA `device` (the JAX
-package's jax.devices()), else [device].
+(vdo_slam_tpu_torch/devices.py says why not a process group).  The list
+may repeat a device: one card (or the CPU) then runs the groups one after
+another.  devices=None takes every visible card on a CUDA `device` (the
+JAX package's jax.devices()), else [device].
+
+Window solves run as in the JAX package: each stream's tracker queues its
+solves on a background thread of its own (pipeline/fused.py), so S
+streams that trigger on the same frame solve on S threads at once, each
+on its group's device and on a CUDA stream of its own; `flush` joins
+them all.
 
 Against the JAX package besides: the drainer and uploader threads are
 replaced by asynchronous pinned copies and CUDA events on the calling
-thread, as in pipeline/fused.py.
+thread, as in pipeline/fused.py: staging waited 0.02-0.04 ms per chunk on
+the card and archiving takes ~0.5 ms a frame (PERF.md §5), so a thread
+would have nothing to overlap.
 """
 
 from __future__ import annotations
@@ -216,8 +223,12 @@ class MultiStreamSystem:
                 for fds, gts, fid, copies, t0 in batch]
 
     def flush(self) -> list[list[dict]]:
-        """Archive every in-flight frame, in order."""
-        return self._drain_batch()
+        """Archive every in-flight frame, in order, and join every stream's
+        window solves."""
+        done = self._drain_batch()
+        for t in self.trackers:
+            t._join_ba()
+        return done
 
     def run(self, datasets, max_frames: int | None = None,
             verbose: bool = False) -> list[list[dict]]:

@@ -11,8 +11,12 @@ Tracker of pipeline/tracking.py, one frame per call; mode "fused" drives
 the FusedTracker (one device step per frame, frames or an
 InMemoryPackedDataset / PackedDataset of wire buffers, chunks).  With
 enable_local_ba the tracker runs a window solve every WINDOW_SIZE -
-OVERLAP_SIZE frames; with enable_global_ba, run_sequence ends with the
-full-batch solve, whose report it keeps in `full_ba_report`.
+OVERLAP_SIZE frames: in mode "reference" at once on the tracking thread,
+in mode "fused" on the tracker's background solve thread, which the
+tracker's flush joins (at the end of run_sequence, and before metrics(),
+timing() and save_results() read the map), as in the JAX package.  With
+enable_global_ba, run_sequence ends with the full-batch solve, after the
+window solves, and keeps its report in `full_ba_report`.
 """
 
 from __future__ import annotations

@@ -50,7 +50,8 @@ def main(n_frames: int = 48, device="cuda", width: int = bench.W,
     sysm.run_sequence(bench._View(pds, 0, 2 * C))
     bench.log(f"warmup ({2 * C} frames): {time.perf_counter() - t0:.1f}s")
     drives = [{"what": "warm frames", "given": 2 * C,
-               "archived": sysm.map.num_frames, "steps": tr.frame_id}]
+               "archived": sysm.map.num_frames, "steps": tr.frame_id,
+               "ba_failures": tr.ba_failures}]
 
     start = 2 * C
     n_chunks = min(n_frames, len(pds) - start) // C
@@ -83,7 +84,8 @@ def main(n_frames: int = 48, device="cuda", width: int = bench.W,
     total = t5 - t_loop
     drives.append({"what": "inline chunks", "given": n_inline,
                    "archived": sysm.map.num_frames - n0,
-                   "steps": tr.frame_id - f0})
+                   "steps": tr.frame_id - f0,
+                   "ba_failures": tr.ba_failures})
     bench.log("chunk phases (ms): submit / grab_chunk / stage-wait")
     for i, (a, b, c) in enumerate(rows):
         bench.log(f"  chunk {i}: {a:9.3f} {b:9.3f} {c:9.3f}")

@@ -17,7 +17,9 @@ bench (`bench_scene`, `bench_config` with its VDO_BENCH_* knobs,
                      only), with launches_per_frame, the kernels counted.
   loop_ms_frame_ba_off / _ba_on
                      `System.run_sequence` on a fresh System after 2 C
-                     warm frames, window BA off and then on.
+                     warm frames, window BA off and then on (the solves
+                     on the tracker's background thread, overlapping the
+                     steps; the final flush waits for the last).
   gap_ms_frame_ba_off / _ba_on
                      loop - max(upload, dispatch).
 
@@ -27,8 +29,9 @@ each of the step's kernels itself, so that phase is two numbers: the
 host's dispatch time, and the device's time for the kernels queued.  The
 card is busy for a small share of a step, so the dispatch time is what
 bounds the loop; the gap is the loop's host work outside the step
-(reading and staging frames, archiving, the drains, and with BA on the
-window solves, which run on the tracker's thread).  On the CPU the step's
+(reading and staging frames, archiving, the drains, and with BA on what
+the window solves' thread costs the tracker's: the interpreter lock the
+two share, and the wait for the last solve).  On the CPU the step's
 ops run as they are dispatched, so device_ms_frame is the dispatch time
 and launches_per_frame 0 (no kernel is launched).
 
@@ -90,8 +93,9 @@ def device_profile(fn, device) -> tuple[float, int]:
 def drive(cfg, device, pds, start: int, n: int, ba: bool, sysm=None):
     """run_sequence over frames start .. start + n - 1, on `sysm` or a
     fresh System that first runs frames 0 .. start - 1 as warm frames:
-    (System, ms per frame, {"given", "archived", "steps"}).  steps counts
-    the frames the step ran, a padded tail chunk's padding included."""
+    (System, ms per frame, {"given", "archived", "steps", "ba_failures"}).
+    steps counts the frames the step ran, a padded tail chunk's padding
+    included; ba_failures the tracker's window solves that raised."""
     from ..pipeline import System
 
     if sysm is None:
@@ -105,7 +109,8 @@ def drive(cfg, device, pds, start: int, n: int, ba: bool, sysm=None):
     sync(device)
     ms = (time.perf_counter() - t0) / n * 1e3
     return sysm, ms, {"given": n, "archived": sysm.map.num_frames - n0,
-                      "steps": tr.frame_id - f0}
+                      "steps": tr.frame_id - f0,
+                      "ba_failures": tr.ba_failures}
 
 
 def main(n_frames: int = 48, device="cuda", width: int = bench.W,
