@@ -133,7 +133,19 @@ Phases, in order (any failure raises and exits nonzero):
      probe_chunk.main(n_frames=24) (per chunk: submit, grab_chunk,
      stage-wait; the drain, ms per frame, then run_sequence on the same
      System).  Checks: every phase time finite and >= 0, every drive
-     archiving the frames it was given, one FAST launch per frame stepped.
+     archiving the frames it was given, one FAST launch per frame stepped;
+  15. the port's driver entry points (vdo_slam_tpu_torch/graft_entry.py,
+     the counterpart of __graft_entry__.py): entry()'s step once (one FAST
+     launch, a finite pose); dryrun_multichip(8) over cuda:0 eight times
+     (the S = 8 step for two frames, stream 0 against the solo step, the
+     sharded full BA of a 25-frame 256x192 sequence against one device's)
+     with the original's bounds and 42 FAST launches; leg (c)'s cost,
+     pose gap, points, edges, motion vertices and dynamic observations
+     beside the JAX run's (MULTICHIP_r05.json); the launches of one LM
+     iteration of that full BA over 8 shards (torch.profiler: a
+     two-iteration solve less a one-iteration one); and the kernel held to
+     its plain version (atol=0) at the phase's own pyramids: 2 levels of
+     96x64, alone and as S = 1 stacks, and 3 levels of 256x192.
 Phases 5-7, 12b, 13a, 13b and 14 print the seconds the tracker's thread
 waited in flush for window solves still running (chip_smoke wraps
 FusedTracker._join_ba to time it) and fail on a tracker whose
@@ -396,6 +408,8 @@ N_THROUGHPUT = 6                      # bench.py --throughput (bench.py:451)
 PHASE13_BUDGET_S = 120
 N_PROBE_FRAMES = 24                   # phase 14: frames per probe drive
 PHASE14_BUDGET_S = 120
+N_GRAFT = 8               # phase 15: dryrun_multichip(8) as __graft_entry__
+PHASE15_BUDGET_S = 120
 STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
 # window ends (archive lengths at the triggers, Tracking.cc:1168-1183) of
 # 100 frames and of 40 frames with window 20 / overlap 4
@@ -562,6 +576,21 @@ def _pyramids(scene, device, frames):
             for f in frames]
 
 
+def held(name, img, k_ini, k_min, ti, tm) -> float:
+    """The kernel's two score maps `k_ini`, `k_min` of `img` against the
+    plain version's (atol=0); their largest abs error."""
+    from vdo_slam_tpu_torch.ops import fast
+
+    p_ini, p_min = fast.fast_score(img, ti), fast.fast_score(img, tm)
+    err = max(float((k_ini - p_ini).abs().max()),
+              float((k_min - p_min).abs().max()))
+    if not (torch.equal(k_ini, p_ini) and torch.equal(k_min, p_min)):
+        raise RuntimeError(f"{name}: kernel != plain, max abs err {err}")
+    nz = float((p_min > 0).float().mean())
+    print(f"kernel == plain (atol=0): {name}, corner share {nz:.4f}")
+    return err
+
+
 def check_kernel(scene, device, stream_grays: dict) -> tuple[float, dict]:
     """Phase 3a: kernel == plain version (atol=0), one level per launch and
     one launch per pyramid.  Returns the largest abs error seen, and per S
@@ -586,16 +615,6 @@ def check_kernel(scene, device, stream_grays: dict) -> tuple[float, dict]:
     cases.append(("frames 0-2 batched S=3",
                   torch.from_numpy(np.ascontiguousarray(scene.rgb[:3])),
                   TH_INI, TH_MIN))
-
-    def held(name, img, k_ini, k_min, ti, tm) -> float:
-        p_ini, p_min = fast.fast_score(img, ti), fast.fast_score(img, tm)
-        err = max(float((k_ini - p_ini).abs().max()),
-                  float((k_min - p_min).abs().max()))
-        if not (torch.equal(k_ini, p_ini) and torch.equal(k_min, p_min)):
-            raise RuntimeError(f"{name}: kernel != plain, max abs err {err}")
-        nz = float((p_min > 0).float().mean())
-        print(f"kernel == plain (atol=0): {name}, corner share {nz:.4f}")
-        return err
 
     max_err = 0.0
     for name, img, ti, tm in cases:
@@ -2542,6 +2561,144 @@ def probes(device, card: str) -> dict:
     return out
 
 
+# The JAX package's own dry run, leg (c), from MULTICHIP_r05.json (JAX on a
+# virtual mesh of 8 CPU devices): accuracy figures, not times.
+JAX_REF_GRAFT = {"cost0": 0.1849, "cost": 0.09363, "cost_ref": 0.09363,
+                 "pose_err": 2.98e-8, "n_points": 19697, "n_edges": 52854,
+                 "n_motions": 50, "n_dyn": 18226}
+
+
+def check_graft_pyramids(args, device) -> float:
+    """Phase 15's FAST launches at the shapes its paths give the kernel,
+    against the plain version (atol=0), one launch per pyramid: entry()'s
+    frame as its 2-level 96x64 pyramid, the dry run's eight streams' frames
+    as S = 1 stacks (leg (a) runs one stream per device group), and frames
+    0, 12 and 24 of leg (c)'s 256x192 scene as its 3-level pyramid.
+    Returns the largest abs error."""
+    from vdo_slam_tpu_torch import graft_entry
+    from vdo_slam_tpu_torch.io.synthetic import make_scene
+    from vdo_slam_tpu_torch.ops import fast
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL, fast_score_pyramid
+    from vdo_slam_tpu_torch.ops.image import rgb_to_gray
+
+    cfg, mcfg = graft_entry._tiny_config(), graft_entry._medium_config()
+    cases = [("entry()'s frame", cfg, rgb_to_gray(args[1]["rgb"]))]
+    cases += [(f"leg (a)'s stream {s} as an S = 1 stack", cfg, rgb_to_gray(
+        graft_entry._example_inputs(cfg, seed=s, device=device)["rgb"])[None])
+        for s in range(N_GRAFT)]
+    scene = make_scene(num_frames=25, width=mcfg.camera.width,
+                       height=mcfg.camera.height, num_objects=3, seed=11)
+    cases += [(f"leg (c)'s frame {f}", mcfg,
+               torch.from_numpy(scene.rgb[f]).to(device)) for f in (0, 12, 24)]
+    max_err = 0.0
+    for what, c, gray in cases:
+        fe = c.frontend
+        ti, tm = fe.ini_th_fast * (1.0 / 255.0), fe.min_th_fast * (1.0 / 255.0)
+        lv = fast.pyramid(gray, fe.n_levels, fe.scale_factor)
+        before = KERNEL.launches
+        pairs = fast_score_pyramid(lv, ti, tm)
+        torch.cuda.synchronize()
+        if KERNEL.launches != before + 1:
+            raise RuntimeError(f"pyramid of {what}: "
+                               f"{KERNEL.launches - before} launches, want 1")
+        for l, (g, (k_ini, k_min)) in enumerate(zip(lv, pairs)):
+            stacks = (g, k_ini, k_min) if g.ndim == 3 else (
+                g[None], k_ini[None], k_min[None])
+            for gs, ks_ini, ks_min in zip(*stacks):
+                max_err = max(max_err, held(
+                    f"one launch for the pyramid of {what}, level {l} "
+                    f"{tuple(g.shape)}", gs, ks_ini, ks_min, ti, tm))
+    return max_err
+
+
+def graft_entry_phase(device, card: str) -> dict:
+    """Phase 15: the port's counterpart of __graft_entry__.py.  entry()'s
+    step once (one FAST launch, a finite pose), then dryrun_multichip(8)
+    over the one card (cuda:0 eight times) with the original's asserts,
+    its FAST launches (one per stream group per frame in leg (a): 16; 2 for
+    the solo step; 24 for leg (c)'s tracking), leg (c)'s numbers beside the
+    JAX run's, the launches per LM iteration of leg (c)'s full BA over 8
+    shards (torch.profiler: a two-iteration solve less a one-iteration
+    one), and the kernel against its plain version at this phase's
+    pyramid shapes."""
+    import copy
+
+    from vdo_slam_tpu_torch import graft_entry
+    from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+
+    fn, args = graft_entry.entry()
+    KERNEL.launches = 0
+    state, _ = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = KERNEL.launches
+    T = state.frame.T_cw.cpu().numpy()
+    print(f"(15a) entry(): one step on {args[0].frame.T_cw.device}, "
+          f"{entry_launches} FAST launch(es), T_cw finite "
+          f"{bool(np.isfinite(T).all())} [{card}]")
+    if entry_launches != 1 or not np.isfinite(T).all():
+        raise RuntimeError("entry(): want one FAST launch and a finite pose")
+
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(N_GRAFT)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = KERNEL.launches
+    # leg (a): one batched launch per stream group per frame; leg (b): one
+    # per solo frame; leg (c): one per frame tracked (the dataset of a
+    # 25-frame scene holds 24)
+    want = 2 * N_GRAFT + 2 + 24
+    solo, ba = res["solo"], res["full_ba"]
+    print(f"(15b) dryrun_multichip({N_GRAFT}) over {len(res['devices'])} x "
+          f"{res['devices'][0]} in {secs:.1f} s, {launches} FAST launches "
+          f"(want {want}); stream 0 against the solo step: pose "
+          f"{solo['pose_gap']:.3e} (bound {graft_entry.SOLO_POSE_TOL}), "
+          f"t_rpe {solo['rpe_gap']:.3e} (bound {graft_entry.SOLO_RPE_TOL}) "
+          f"[{card}]")
+    print(f"(15b) leg (c), port on the card / JAX (MULTICHIP_r05, virtual "
+          f"CPU mesh): " + ", ".join(
+              f"{k} {ba[k]:.6g} / {v:.6g}" for k, v in JAX_REF_GRAFT.items()))
+    if launches != want:
+        raise RuntimeError(f"dryrun_multichip: {launches} FAST launches, "
+                           f"want {want}")
+    if not (solo["pose_gap"] < graft_entry.SOLO_POSE_TOL
+            and solo["rpe_gap"] < graft_entry.SOLO_RPE_TOL):
+        raise RuntimeError("dryrun_multichip: stream 0 against the solo "
+                           "step out of bounds")
+    if not (ba["cost"] <= ba["cost0"] and ba["pose_err"]
+            < graft_entry.POSE_TOL and abs(ba["cost"] - ba["cost_ref"])
+            <= graft_entry.COST_REL_TOL * ba["cost_ref"] + 1e-6):
+        raise RuntimeError("dryrun_multichip: the sharded full BA out of "
+                           "bounds")
+    # one- and two-iteration solves under the profiler (reading a trace of
+    # all six iterations' ~265,000 kernels took tens of seconds): their
+    # difference is one LM iteration, without the graph build, upload and
+    # fetch both include
+    runs = {}
+    for iters in (1, 2):
+        rep, n_k, dev_ms, wall_ms = _profiled(
+            lambda it=iters: full_ba_inplace(
+                copy.deepcopy(ba["map"]), ba["config"], iters=it,
+                device=device, devices=[device] * N_GRAFT),
+            f"leg (c)'s full BA over {N_GRAFT} shards, {iters} LM "
+            f"iteration(s)", host_ops=False)
+        runs[rep["iters_run"]] = (n_k, dev_ms, wall_ms)
+    if sorted(runs) != [1, 2]:
+        raise RuntimeError(f"leg (c)'s full BA ran {sorted(runs)} LM "
+                           f"iterations, want [1, 2]")
+    per = runs[2][0] - runs[1][0]
+    print(f"(15c) leg (c)'s full BA over {N_GRAFT} shards under "
+          f"torch.profiler: {per} kernel launches per LM iteration ("
+          f"{runs[1][0]} in a one-iteration solve, {runs[2][0]} in a "
+          f"two-iteration one, graph build, upload and fetch included in "
+          f"both; {runs[1][1]:.3f} / {runs[2][1]:.3f} ms on the device in "
+          f"{runs[1][2]:.3f} / {runs[2][2]:.3f} ms) [{card}]")
+    err = check_graft_pyramids(args, device)
+    return {"entry_launches": entry_launches, "launches": launches,
+            "seconds": secs, "launches_per_iter": per, "max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2651,6 +2808,11 @@ def main() -> int:
     print(f"phase 14: {time.perf_counter() - t14:.1f} s (budget "
           f"{PHASE14_BUDGET_S} s)")
     phase_done("14 (probe_loop and probe_chunk)")
+    t15 = time.perf_counter()
+    graft = graft_entry_phase(device, card)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s (budget "
+          f"{PHASE15_BUDGET_S} s) [{card}]")
+    phase_done("15 (graft_entry: entry() and dryrun_multichip(8))")
     if disk["not_run"]:
         print(f"NOT RUN (a host library is missing; not passed): "
               f"{', '.join(disk['not_run'])}")
@@ -2676,11 +2838,14 @@ def main() -> int:
         "launches_packed_dir_path": pdir["launches"],
         "launches_probe_loop": probed["probe_loop"]["launches"],
         "launches_probe_chunk": probed["probe_chunk"]["launches"],
+        "launches_graft_entry": graft["entry_launches"],
+        "launches_dryrun": graft["launches"],
         "streams": N_STREAMS,
         "streams_throughput": N_THROUGHPUT,
         "max_abs_err": max_err,
         "max_abs_err_batched": err_batched[N_STREAMS],
         "max_abs_err_batched_s6": err_batched[N_THROUGHPUT],
+        "max_abs_err_graft": graft["max_abs_err"],
         "ms": kern["ms"],
         "ms_s4": kern_s[N_STREAMS]["ms"],
         "ms_s6": kern_s[N_THROUGHPUT]["ms"],

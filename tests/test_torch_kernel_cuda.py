@@ -7,7 +7,9 @@ S-stream system on the card against the same on the CPU, the host Tracker
 (System mode "reference") on the card against the same on the CPU with
 one FAST launch per frame (none with grid-sampled keypoints) and its
 one-copy host reads, one frame of a barrel-distorted bench scene stepped
-from one state on the card and on the CPU, both BA solvers on the card
+from one state on the card and on the CPU, that scene's frame 0 stage by
+stage (bit-equal to the CPU's once fed the CPU's pyramid levels; the same
+sets of keypoints with seeded noise), both BA solvers on the card
 against the same solve on the CPU, a window solve on a fused tracker's
 solve thread and stream against the same solve inline, the edge-sharded
 full solve and
@@ -482,6 +484,102 @@ def test_distorted_frame_on_card_matches_cpu(tmp_path):
     print(f"distorted frame 4, card vs CPU: {dt:.3e} m, {dr:.3e} deg, "
           f"camera inliers {card['n_inlier_cam']} / {cpu['n_inlier_cam']}")
     assert dt < 1e-3 and dr < 0.01, (dt, dr)
+
+
+# the card's pyramid levels against the CPU's on the distorted frame 0
+# (2.724e-5 measured on an H100 by chip_distortion_scatter.py)
+LEVEL_GAP_TOL = 3e-5
+
+
+def _distorted_frame0_stages(fd, cfg, dev, rgb, levels=None,
+                             monkeypatch=None):
+    """Frame 0 of the distorted scene on `dev`, stage by stage: pyramid
+    levels, FAST score maps, detections, their undistorted keypoints, and
+    the static and object candidates.  `levels` (another device's) replace
+    this device's own pyramid."""
+    from vdo_slam_tpu_torch.pipeline import stages
+    from vdo_slam_tpu_torch.pipeline.draws import UniformDraws, frame_uniforms
+
+    fe = cfg.frontend
+    gray = torch.from_numpy(rgb).to(dev)
+    if levels is not None:
+        monkeypatch.setattr(fast, "pyramid",
+                            lambda *a, **k: [x.to(dev) for x in levels])
+    lv = fast.pyramid(gray, fe.n_levels, fe.scale_factor)
+    scores = stages.make_score_pyramid(cfg)(gray)
+    det = fast.select_pyramid(scores, fe.n_features, fe.scale_factor,
+                              fe.fast_cell)
+    draws = UniformDraws(frame_uniforms(cfg, 0, torch.Generator(), dev))
+    prep = stages.make_prepare(cfg, dev)(
+        gray, torch.from_numpy(fd.depth_raw).to(dev),
+        torch.from_numpy(fd.flow).to(dev),
+        torch.from_numpy(fd.mask.astype(np.int32)).to(dev), draws,
+        scores=scores)
+    out = {"levels": lv, "scores": [t for pair in scores for t in pair],
+           "und": stages._warps(cfg, dev)[0](det["xy"])}
+    out.update({f"det_{k}": v for k, v in det.items()})
+    for bank in ("stat_cand", "obj_cand"):
+        out.update({f"{bank}_{k}": v for k, v in prep[bank].items()})
+    return {k: ([t.cpu() for t in v] if isinstance(v, list) else v.cpu())
+            for k, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def distorted_frame0():
+    scene = make_scene(num_frames=2, width=1242, height=375, num_objects=3,
+                       fx=721.5377, seed=7, dist=DIST)
+    return SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)[0]
+
+
+def test_distorted_frame0_departs_only_at_the_resize(distorted_frame0,
+                                                     monkeypatch):
+    """Frame 0 of the distorted scene: the gray image is equal on the two
+    devices and the pyramid levels are not (F.interpolate rounds
+    differently on the card: 2.724e-5 at most on an H100); fed the CPU's
+    levels, the card's FAST score maps, detections, undistorted keypoints
+    and candidate banks are bit-equal to the CPU's."""
+    from vdo_slam_tpu_torch.ops.image import rgb_to_gray
+
+    cfg = _bench_cfg(k1=DIST[0], k2=DIST[1])
+    fe = cfg.frontend
+    rgb = np.asarray(distorted_frame0.rgb, np.float32)
+    gray = {dev: rgb_to_gray(torch.from_numpy(rgb).to(dev))
+            for dev in ("cpu", "cuda")}
+    assert torch.equal(gray["cuda"].cpu(), gray["cpu"])
+    own = {dev: fast.pyramid(g, fe.n_levels, fe.scale_factor)
+           for dev, g in gray.items()}
+    gap = max(float((a.cpu() - b).abs().max())
+              for a, b in zip(own["cuda"], own["cpu"]))
+    assert 0.0 < gap <= LEVEL_GAP_TOL, gap
+    cpu = _distorted_frame0_stages(distorted_frame0, cfg, "cpu", rgb)
+    card = _distorted_frame0_stages(distorted_frame0, cfg, "cuda", rgb,
+                                    cpu["levels"], monkeypatch)
+    for k, v in cpu.items():
+        for a, b in zip(v, card[k]) if isinstance(v, list) else [(v,
+                                                                  card[k])]:
+            assert torch.equal(a, b), k
+
+
+def test_distorted_frame0_banks_with_noise_agree_as_sets(distorted_frame0):
+    """The explanation's prediction: with seeded gray noise (sigma 0.02,
+    seed 0) the resize no longer reorders score ties, and frame 0's
+    detections and candidate banks are the same sets of keypoints on the
+    card and on the CPU (rows may come in another order)."""
+    cfg = _bench_cfg(k1=DIST[0], k2=DIST[1])
+    rgb = np.clip(np.asarray(distorted_frame0.rgb, np.float32)
+                  + 0.02 * np.random.default_rng(0).standard_normal(
+                      distorted_frame0.rgb.shape), 0.0, 1.0).astype(
+                          np.float32)
+    got = {dev: _distorted_frame0_stages(distorted_frame0, cfg, dev, rgb)
+           for dev in ("cpu", "cuda")}
+
+    def rows(out, name):
+        xy, ok = out[f"{name}_xy"].numpy(), out[f"{name}_valid"].numpy()
+        return sorted(map(tuple, xy[ok].tolist()))
+
+    for name in ("det", "stat_cand", "obj_cand"):
+        assert rows(got["cuda"], name) == rows(got["cpu"], name), name
+    assert len(rows(got["cpu"], "stat_cand")) == cfg.shapes.max_static
 
 
 def test_tracker_fetch_is_one_exact_copy():

@@ -32,6 +32,10 @@ from .builders import build_full_graph
 from .factor_graph import (LMParams, Variables, fetch, lm_solve_chunked,
                            lm_solve_sharded_chunked, upload)
 
+# LM iterations per chunk by default (BackendConfig.full_ba_chunk): the
+# gain test runs at chunk boundaries only (full_ba.py:25-34)
+FULL_BA_CHUNK = 3
+
 
 def _lm_params(cfg: VDOConfig, iters: int | None = None) -> LMParams:
     be = cfg.backend
