@@ -146,6 +146,22 @@ Phases, in order (any failure raises and exits nonzero):
      two-iteration solve less a one-iteration one); and the kernel held to
      its plain version (atol=0) at the phase's own pyramids: 2 levels of
      96x64, alone and as S = 1 stacks, and 3 levels of 256x192.
+  16. the compiled programs (vdo_slam_tpu_torch/utils/cuda_graph.py; every
+     fused tracker, S-stream group and window solve above runs from its
+     CUDA graphs), graphed against eager in this process: (a) phase 4's 25
+     frames against the same frames through make_frame_step op by op and
+     (b) phase 7's four 40-frame windows against the batched step op by
+     op, each frame's pose within 1e-3 m and 0.01 deg with equal object
+     counts, and equal object estimates over the run; one S = 4 frame's
+     host launch calls each way (at most 50 graphed, one FAST kernel);
+     (c) the S = 1 chunk steps on the same staged frames each way:
+     dispatch and device ms per frame (probe_loop's method), kernels and
+     host launch calls per frame (at most 50 graphed), the FAST kernels
+     the profiler saw against KERNEL.launches, peak memory; (d) each
+     window-solve tier (builders.WINDOW_TIERS) on a window of phase 5's
+     map, graphed against eager: the cost within 1e-5 relative, the poses
+     within the bounds of (a), wall ms per solve each way, and each
+     graph's warm-up and capture seconds and pool bytes.
 Phases 5-7, 12b, 13a, 13b and 14 print the seconds the tracker's thread
 waited in flush for window solves still running (chip_smoke wraps
 FusedTracker._join_ba to time it) and fail on a tracker whose
@@ -860,7 +876,8 @@ def main_path(scene, cfg, device, card: str) -> dict:
     rep = sysm.metrics()
     gate(rep, JAX_REF, "")
     return {"launches": launches, "fps": fps, "peak_bytes": peak,
-            "metrics": rep}
+            "metrics": rep, "reports": reports, "ds": ds,
+            "graph": sysm.tracker._graph.track.record}
 
 
 def gate(rep: dict, ref: dict, what: str) -> None:
@@ -1420,7 +1437,11 @@ def stream_path(pds, cfg, device, card: str) -> dict:
           f"{sdev / swall:.4f} [{card}]")
     return {"launches": launches, "agg_fps": agg_fps, "solo_fps": mean_solo,
             "peak_bytes": peak, "step_launches": ml, "busy": mdev / mwall,
-            "worst_gap": worst, "join_wait_s": waited}
+            "worst_gap": worst, "join_wait_s": waited, "reports": reps,
+            "views": views, "metrics": per, "system": msys,
+            "graphs": [g.graph.track.record for g in msys.groups]
+            + [r for wg in msys.window_graphs.values()
+               for r in wg.records()]}
 
 
 def _count_syncs(prof) -> tuple[int, int]:
@@ -2699,6 +2720,361 @@ def graft_entry_phase(device, card: str) -> dict:
             "seconds": secs, "launches_per_iter": per, "max_abs_err": err}
 
 
+# phase 16: graphed against eager.  The S = 1 cell is phase 4's 25 frames,
+# the S = 4 cell phase 7's four 40-frame windows; both held per frame to
+# the step's card-vs-CPU bounds (STREAM_T_TOL_M, STREAM_R_TOL_DEG) and to
+# equal object estimates.  A tier's graphed window solve is held to the
+# eager one within GRAPH_COST_RTOL of the cost and the same pose bounds.
+GRAPH_COST_RTOL = 1e-5
+GRAPH_HOST_CALLS_MAX = 50      # host launch calls per steady tracked frame
+GRAPH_DISPATCH_CHUNKS = 6      # chunks of 4 frames timed each way
+GRAPH_SOLVE_REPS = 3
+# CUDA runtime and driver calls that queue device work: what the host
+# issues per frame
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync", "cuMemcpyAsync",
+                "cuMemsetD8Async", "cuMemsetD32Async")
+
+
+def _host_launches(fn) -> tuple[int, int, int]:
+    """fn() once under torch.profiler (CPU and CUDA activity): (host calls
+    that queue device work (LAUNCH_CALLS), kernels the device ran, FAST
+    kernels among them).  A session that recorded no kernel is retried,
+    twice at most, and then raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        calls = sum(1 for e in events if e.name in LAUNCH_CALLS)
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+        if dev:
+            return calls, len(dev), sum(1 for e in dev
+                                        if KERNEL_NAME in e.name)
+    raise RuntimeError("the profiler recorded no kernel in 3 sessions")
+
+
+def _eager_fused_drive(cfg, ds, device):
+    """Phase 16a's reference: the packed step called by hand, op by op
+    (make_frame_step, no graph), on `ds` with each frame's draws, archived
+    by a FusedTracker's host half.  Returns (map, reports)."""
+    from vdo_slam_tpu_torch.parallel.multistream import (make_frame_step,
+                                                         make_stream_state)
+    from vdo_slam_tpu_torch.pipeline.draws import UniformDraws
+    from vdo_slam_tpu_torch.pipeline.fused import FusedTracker, pack_outputs
+
+    host = FusedTracker(cfg, device=device, build_step=False)
+    step = make_frame_step(cfg, device, packed=True)
+    st = make_stream_state(cfg, device)
+    reps = []
+    for f in range(len(ds)):
+        fd = ds[f]
+        inputs = host.device_inputs(fd)
+        T_cw_gt = inputs.pop("_T_cw_gt_host")
+        st, m = step(st, inputs, UniformDraws(host.frame_draws(f)), f > 0)
+        vec = pack_outputs(st, m).cpu().numpy()
+        reps.append(host._finish_frame(fd, T_cw_gt, f, vec,
+                                       time.perf_counter()))
+    return host.map, reps
+
+
+def _eager_stream_drive(cfg, views, device):
+    """Phase 16b's reference: the S-stream batched step called by hand
+    (`_Group.step`, no graph) on `views`, archived by a MultiStreamSystem's
+    host half.  Returns (system, reports per stream)."""
+    from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+
+    hand = MultiStreamSystem(cfg, n_streams=len(views), enable_local_ba=False,
+                             device=device)
+    g = hand.groups[0]
+    states = g.states
+    reps = [[] for _ in views]
+    for f in range(len(views[0])):
+        fds = [v[f] for v in views]
+        staged = hand._stage(fds)[0]
+        gts = staged.pop("_gts_host")
+        states, vecs = g.step(states, staged, hand._frame_draws(f)[0], f > 0)
+        for s, r in enumerate(hand._archive_frame(
+                fds, gts, f, vecs.cpu().numpy(), time.perf_counter())):
+            reps[s].append(r)
+    return hand, reps
+
+
+def _held_per_frame(graphed: list, eager: list, what: str) -> tuple:
+    """Each frame's T_cw and object count of the graphed reports against
+    the eager ones: raise beyond the stream bounds; (dt, dr) largest."""
+    if len(graphed) != len(eager):
+        raise RuntimeError(f"{what}: {len(graphed)} graphed frames, "
+                           f"{len(eager)} eager")
+    dt = dr = 0.0
+    for a, b in zip(graphed, eager):
+        t, r = _pose_gap(_np_inv(a["T_cw"]), _np_inv(b["T_cw"]))
+        dt, dr = max(dt, t), max(dr, r)
+        if a["n_objects"] != b["n_objects"]:
+            raise RuntimeError(f"{what}, frame {a['frame_id']}: "
+                               f"{a['n_objects']} objects graphed, "
+                               f"{b['n_objects']} eager")
+    if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+        raise RuntimeError(f"{what}: graphed against eager {dt} m, {dr} deg")
+    return dt, dr
+
+
+def _np_inv(T):
+    return np.linalg.inv(np.asarray(T, np.float64))
+
+
+def graphs_dispatch(cfg, pds, device, card: str) -> dict:
+    """Phase 16c: the fused tracker's chunk steps (bench config, chunks of
+    4, tpu_fast's wire) on the same staged frames, graphed (step_chunk's
+    replays) and eager (the same frames through make_frame_step op by op,
+    as step_chunk ran before the graphs), in one process: probe_loop's
+    dispatch_ms_frame (host time to queue, no sync) and device_ms_frame
+    (probe_loop.device_profile), host launch calls and kernels per frame,
+    the FAST kernel's profiler count against KERNEL.launches, and peak
+    memory each way."""
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
+    from vdo_slam_tpu_torch.pipeline.draws import UniformDraws
+    from vdo_slam_tpu_torch.pipeline.fused import FusedTracker, pack_outputs
+    from vdo_slam_tpu_torch.tools.probe_loop import device_profile
+
+    tr = FusedTracker(cfg, device=device)
+    C = tr.chunk
+    chunks = [[pds[i * C + c] for c in range(C)] for i in range(3)]
+    for ch in chunks[:2]:                    # init, warm-up, capture
+        tr.grab_chunk(ch)
+    tr.flush()
+    staged = [tr.device_inputs_chunk(chunks[i]) for i in (1, 2)]
+    for st in staged:
+        st.pop("_T_cw_gt_host")
+    fid = tr.frame_id
+    state0 = tr.state
+
+    def graphed(n):
+        for i in range(n):
+            tr._step_chunk(staged[i % 2], fid + i * C)
+
+    def eager(n):
+        st = state0
+        for i in range(n):
+            vecs = []
+            for c in range(C):
+                st, m = tr.step(st, {k: v[c] for k, v in
+                                     staged[i % 2].items()},
+                                UniformDraws(tr.frame_draws(fid + i * C
+                                                            + c)), True)
+                vecs.append(pack_outputs(st, m))
+            torch.stack(vecs)
+
+    out = {}
+    for name, run in (("graphed", graphed), ("eager", eager)):
+        run(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(GRAPH_DISPATCH_CHUNKS)
+        disp = (time.perf_counter() - t0) / (GRAPH_DISPATCH_CHUNKS * C) * 1e3
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        dev_ms, kernels = device_profile(lambda: run(2), device)
+        before = KERNEL.launches
+        calls, prof_kernels, fast = _host_launches(lambda: run(1))
+        counted = KERNEL.launches - before
+        out[name] = {"dispatch_ms_frame": disp,
+                     "device_ms_frame": dev_ms / (2 * C),
+                     "kernels_per_frame": kernels / (2 * C),
+                     "host_calls_per_frame": calls / C,
+                     "fast_profiled": fast, "fast_counted": counted,
+                     "peak_bytes": peak}
+        print(f"16c, {name} chunk steps (S = 1, chunks of {C}): dispatch "
+              f"{disp:.3f} ms/frame, device {dev_ms / (2 * C):.3f} "
+              f"ms/frame, {kernels / (2 * C):.1f} kernels and "
+              f"{calls / C:.1f} host launch calls per frame, FAST "
+              f"{fast} in the profile / {counted} counted over {C} frames, "
+              f"peak memory {peak} bytes ({peak / 2**20:.1f} MiB) [{card}]")
+        if fast != counted or counted != C:
+            raise RuntimeError(f"16c {name}: the profiler saw {fast} FAST "
+                               f"kernels, KERNEL.launches counted {counted} "
+                               f"over {C} frames")
+    g, e = out["graphed"], out["eager"]
+    print(f"16c, dispatch ms/frame graphed {g['dispatch_ms_frame']:.3f} "
+          f"against eager {e['dispatch_ms_frame']:.3f} "
+          f"({e['dispatch_ms_frame'] / g['dispatch_ms_frame']:.1f}x); "
+          f"host launch calls per frame {g['host_calls_per_frame']:.1f} "
+          f"against {e['host_calls_per_frame']:.1f}; the graph's capture "
+          f"{json.dumps(tr._graph.track.record)} [{card}]")
+    if g["host_calls_per_frame"] > GRAPH_HOST_CALLS_MAX:
+        raise RuntimeError(f"16c: {g['host_calls_per_frame']} host launch "
+                           f"calls per graphed frame, want at most "
+                           f"{GRAPH_HOST_CALLS_MAX}")
+    return out
+
+
+def graphs_solves(m, cfg, device, card: str) -> dict:
+    """Phase 16d: each window-solve tier, graphed against eager, on window
+    graphs of phase 5's map before its full BA (the first window end that
+    falls in each builders.WINDOW_TIERS entry): the cost within
+    GRAPH_COST_RTOL, every pose within the stream bounds, and each way's
+    wall ms per solve (upload, solve, wait, fetch; the median of
+    GRAPH_SOLVE_REPS)."""
+    from vdo_slam_tpu_torch.backend import builders
+    from vdo_slam_tpu_torch.backend.factor_graph import (fetch,
+                                                         lm_solve_schur,
+                                                         upload)
+    from vdo_slam_tpu_torch.backend.window_ba import WindowGraphs, _lm_params
+
+    p = _lm_params(cfg)
+    tiers = {}
+    for end in BA_WINDOW_ENDS:
+        g, v, meta = builders.build_window_graph(m, cfg, n_frames=end)
+        tier = [pc for pc, _ in builders.WINDOW_TIERS].index(
+            v.points.shape[0])
+        tiers.setdefault(tier, (end, g, v, meta))
+    if len(tiers) != len(builders.WINDOW_TIERS):
+        raise RuntimeError(f"16d: the window ends {BA_WINDOW_ENDS} fill "
+                           f"tiers {sorted(tiers)} only")
+    graphs = WindowGraphs(device)
+
+    def eager(g, v):
+        vv, info = lm_solve_schur(*upload(g, v, device), p)
+        return fetch((vv.poses, info["cost0"], info["cost"]))
+
+    def graphed(g, v):
+        with graphs.solve(g, v, p) as (vv, info):
+            return fetch((vv.poses, info["cost0"], info["cost"]))
+
+    def wall(fn, g, v):
+        ts = []
+        for _ in range(GRAPH_SOLVE_REPS):
+            t0 = time.perf_counter()
+            res = fn(g, v)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return res, float(np.median(ts))
+
+    out = {}
+    for tier, (end, g, v, meta) in sorted(tiers.items()):
+        eager(g, v)
+        graphed(g, v)                        # the warm-up
+        (pe, c0e, ce), ms_e = wall(eager, g, v)
+        (pg, c0g, cg), ms_g = wall(graphed, g, v)   # capture, replays
+        (pg, c0g, cg), ms_g = wall(graphed, g, v)   # replays
+        calls, kernels, _ = _host_launches(lambda: graphed(g, v))
+        gaps = [_pose_gap(a, b) for a, b in zip(pg, pe)]
+        dt, dr = max(x[0] for x in gaps), max(x[1] for x in gaps)
+        rel = abs(float(cg) - float(ce)) / float(ce)
+        rec = graphs.records()[-1] if graphs.records() else None
+        out[tier] = {"end": end, "points": meta.n_static_points,
+                     "eager_ms": ms_e, "graphed_ms": ms_g,
+                     "cost_eager": float(ce), "cost_graphed": float(cg),
+                     "cost_rel": rel, "pose_gap": (dt, dr),
+                     "host_calls": calls, "kernels": kernels,
+                     "capture": rec}
+        print(f"16d, window tier {tier} {builders.WINDOW_TIERS[tier]} (end "
+              f"{end}, {meta.n_static_points} points): wall {ms_g:.3f} ms "
+              f"graphed against {ms_e:.3f} ms eager per solve; cost "
+              f"{float(c0g):.9g} -> {float(cg):.9g} graphed, "
+              f"{float(c0e):.9g} -> {float(ce):.9g} eager (relative gap "
+              f"{rel:.3e}); largest pose gap {dt:.3e} m, {dr:.3e} deg; "
+              f"{calls} host launch calls and {kernels} kernels per graphed "
+              f"solve; capture {json.dumps(rec)} [{card}]")
+        if not rel <= GRAPH_COST_RTOL:
+            raise RuntimeError(f"16d tier {tier}: cost {cg} graphed, {ce} "
+                               f"eager")
+        if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+            raise RuntimeError(f"16d tier {tier}: poses {dt} m, {dr} deg "
+                               f"apart")
+    return out
+
+
+def graphs_phase(path: dict, streams: dict, ba: dict, pds, device,
+                 card: str) -> dict:
+    """Phase 16: the compiled programs (utils/cuda_graph.py), graphed
+    against eager in this process.  (a) phase 4's 25 frames, tracked
+    through the fused tracker's graph there, against the same frames
+    through make_frame_step op by op; (b) phase 7's S = 4 windows against
+    the batched step op by op; each per frame within the stream bounds with
+    equal object counts, and equal object estimates over the run; (c) the
+    chunk steps' dispatch, device time, host launch calls and FAST counts
+    each way; (d) each window-solve tier each way.  Prints each graph's
+    capture (warm-up and capture seconds, pool bytes)."""
+    from vdo_slam_tpu_torch import bench as port_bench
+    from vdo_slam_tpu_torch.eval.results import metric_report
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    emap, ereps = _eager_fused_drive(bench_config(), path["ds"], device)
+    peak1 = torch.cuda.max_memory_allocated()
+    dt, dr = _held_per_frame(path["reports"], ereps, "16a S = 1")
+    est_g, est_e = (path["metrics"]["n_obj_estimates"],
+                    metric_report(emap)["n_obj_estimates"])
+    print(f"16a, S = 1, {len(ereps)} frames graphed (phase 4) against "
+          f"eager: largest pose gap {dt:.3e} m, {dr:.3e} deg; object "
+          f"estimates {est_g} / {est_e}; eager drive's peak memory {peak1} "
+          f"bytes ({peak1 / 2**20:.1f} MiB), graphed {path['peak_bytes']} "
+          f"({path['peak_bytes'] / 2**20:.1f} MiB); capture "
+          f"{json.dumps(path['graph'])} [{card}]")
+    if est_g != est_e:
+        raise RuntimeError(f"16a: {est_g} object estimates graphed, {est_e} "
+                           f"eager")
+
+    torch.cuda.reset_peak_memory_stats()
+    hand, sreps = _eager_stream_drive(port_bench.multistream_config(),
+                                      streams["views"], device)
+    peak4 = torch.cuda.max_memory_allocated()
+    worst = (0.0, 0.0)
+    for s in range(N_STREAMS):
+        t, r = _held_per_frame(streams["reports"][s], sreps[s],
+                               f"16b stream {s}")
+        worst = (max(worst[0], t), max(worst[1], r))
+        est_g = streams["metrics"][s]["n_obj_estimates"]
+        est_e = metric_report(hand.maps[s])["n_obj_estimates"]
+        if est_g != est_e:
+            raise RuntimeError(f"16b stream {s}: {est_g} object estimates "
+                               f"graphed, {est_e} eager")
+    print(f"16b, S = {N_STREAMS}, {N_STREAM_FRAMES} frames graphed (phase 7) "
+          f"against eager: largest pose gap {worst[0]:.3e} m, "
+          f"{worst[1]:.3e} deg, equal object counts; eager drive's peak "
+          f"memory {peak4} bytes ({peak4 / 2**20:.1f} MiB), graphed (window "
+          f"BA on) {streams['peak_bytes']} "
+          f"({streams['peak_bytes'] / 2**20:.1f} MiB); captures "
+          f"{json.dumps(streams['graphs'])} [{card}]")
+    # one more frame each way, the batched step alone: the group's graph
+    # (phase 7's system, its state where phase 7 left it) against the
+    # eager batched step from the eager drive's state
+    from vdo_slam_tpu_torch.pipeline.draws import frame_uniforms
+
+    fid = N_STREAM_FRAMES + 1
+    nxt = [pds[v.start + fid] for v in streams["views"]]
+    g, gg = hand.groups[0], streams["system"].groups[0]
+    states = g.states
+    staged = hand._stage(nxt)[0]
+    staged.pop("_gts_host")
+    u = hand._frame_draws(fid)[0]
+    u_host = frame_uniforms(hand.cfg, fid, torch.Generator())
+    calls_e, kern_e, _ = _host_launches(
+        lambda: g.step(states, staged, u, True))
+    calls_g, kern_g, fast_g = _host_launches(
+        lambda: gg.graph(staged, u_host, True))
+    print(f"16b, one S = {N_STREAMS} frame's batched step: graphed "
+          f"{calls_g} host launch calls, {kern_g} kernels ({fast_g} FAST); "
+          f"eager {calls_e} host launch calls, {kern_e} kernels [{card}]")
+    if calls_g > GRAPH_HOST_CALLS_MAX or fast_g != 1:
+        raise RuntimeError(f"16b: {calls_g} host launch calls and {fast_g} "
+                           f"FAST kernels in one graphed S = {N_STREAMS} "
+                           f"frame")
+    disp = graphs_dispatch(port_bench.bench_config(), pds, device, card)
+    solves = graphs_solves(ba["pre_full_map"], bench_ba_config(), device,
+                           card)
+    return {"dispatch": disp, "solves": solves, "s1_gap": (dt, dr),
+            "s4_gap": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2813,6 +3189,10 @@ def main() -> int:
     print(f"phase 15: {time.perf_counter() - t15:.1f} s (budget "
           f"{PHASE15_BUDGET_S} s) [{card}]")
     phase_done("15 (graft_entry: entry() and dryrun_multichip(8))")
+    t16 = time.perf_counter()
+    graphs = graphs_phase(path, streams, ba, pds, device, card)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s [{card}]")
+    phase_done("16 (graphs: graphed against eager)")
     if disk["not_run"]:
         print(f"NOT RUN (a host library is missing; not passed): "
               f"{', '.join(disk['not_run'])}")
@@ -2840,6 +3220,8 @@ def main() -> int:
         "launches_probe_chunk": probed["probe_chunk"]["launches"],
         "launches_graft_entry": graft["entry_launches"],
         "launches_dryrun": graft["launches"],
+        "launches_graphs_dispatch": graphs["dispatch"]["graphed"][
+            "fast_counted"],
         "streams": N_STREAMS,
         "streams_throughput": N_THROUGHPUT,
         "max_abs_err": max_err,

@@ -13,9 +13,15 @@ sets of keypoints with seeded noise), both BA solvers on the card
 against the same solve on the CPU, a window solve on a fused tracker's
 solve thread and stream against the same solve inline, the edge-sharded
 full solve and
-full_ba_inplace over ["cuda:0"] * n, and S = 2 streams spread over
+full_ba_inplace over ["cuda:0"] * n, S = 2 streams spread over
 ["cuda:0", "cuda:0"] (two FAST launches per frame) against one group on
-the card.  Every test here skips without a
+the card, and the CUDA graphs (utils/cuda_graph.py): the graphed fused
+tracker and S = 4 system against their steps called op by op on the card
+(the step's card-vs-CPU bounds), KERNEL.launches up by one per replayed
+frame, each window-solve tier's graph against lm_solve_schur op by op
+(cost within 1e-5 relative, poses within 1e-4), and the small linear
+solves of the step and the window solve captured and replayed bit-equal
+to the eager call.  Every test here skips without a
 CUDA device.  This file imports no JAX, so it runs on a machine without
 it:
 
@@ -730,3 +736,156 @@ def test_sharded_full_solve_on_card(tracked_map, n_dev):
     gap = max(float(np.abs(a.astype(np.float64) - b).max())
               for a, b in zip(m2.cam_pose_rf, m1.cam_pose_rf))
     assert gap < 1e-3
+
+
+# ---- the compiled programs (utils/cuda_graph.py) on the card
+
+def _eager_frames(cfg, ds, dev, n):
+    """make_frame_step called by hand, op by op, over n frames: each
+    frame's (T_cw, active slot labels)."""
+    from vdo_slam_tpu_torch.pipeline import draws as draws_mod
+
+    step = make_frame_step(cfg, dev, packed=True)
+    stager = FusedTracker(cfg, device=dev, build_step=False)
+    st = make_stream_state(cfg, dev)
+    out = []
+    for f in range(n):
+        inputs = stager.device_inputs(ds[f])
+        inputs.pop("_T_cw_gt_host")
+        st, m = step(st, inputs, draws_mod.UniformDraws(
+            stager.frame_draws(f)), f > 0)
+        act = m["slot_active"].cpu().numpy()
+        out.append((np.linalg.inv(st.frame.T_cw.cpu().numpy()),
+                    set(m["slot_sem"].cpu().numpy()[act].tolist())))
+    return out
+
+
+def test_graphed_tracker_matches_eager_and_counts_replays():
+    """System(mode="fused") on the card, which steps from its graph from
+    frame 2 on, against the step called by hand on the card over 10
+    frames: each pose within the card-vs-CPU bounds; KERNEL.launches up by
+    one per frame, a replayed frame's launch included, and the capture's
+    recorded launch not counted as one."""
+    from vdo_slam_tpu_torch.pipeline import System
+
+    scene = make_scene(num_frames=11, width=320, height=240, num_objects=2,
+                       seed=3)
+    cfg = _small_cfg()
+    ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                  mode="fused", device="cuda")
+    tr = sysm.tracker
+    per_frame = []
+    for f in range(10):
+        before, captured = KERNEL.launches, KERNEL.captured
+        tr.grab_frame(ds[f])
+        per_frame.append((KERNEL.launches - before,
+                          KERNEL.captured - captured))
+    tr.flush()
+    assert per_frame[2] == (1, 1)            # the capture, then its replay
+    assert all(p == (1, 0) for i, p in enumerate(per_frame) if i != 2)
+    rec = tr._graph.track.record
+    assert rec["kernel_launches_per_replay"] == {"FastScoreKernel": 1}
+    for Tg, (Te, _) in zip(sysm.map.cam_pose, _eager_frames(cfg, ds, "cuda",
+                                                            10)):
+        assert _pose_gap_ok(Te, Tg)
+
+
+def test_graphed_streams_match_eager_batched_step():
+    """MultiStreamSystem(S = 4) on the card (one graph for the group)
+    against its batched step called by hand on the card over 10 frames:
+    every stream's pose within the bounds each frame, one FAST launch per
+    frame for all four streams."""
+    from vdo_slam_tpu_torch.parallel import MultiStreamSystem
+    from vdo_slam_tpu_torch.parallel.multistream import stack_states
+
+    scenes = [make_scene(num_frames=10, width=320, height=240, num_objects=2,
+                         seed=s) for s in (3, 9, 5, 7)]
+    cfg = _small_cfg()
+    cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, **WIRES["tpu_fast"]))
+    dss = [SyntheticDataset(s, depth_map_factor=1.0, bf=40.0) for s in scenes]
+    msys = MultiStreamSystem(cfg, n_streams=4, enable_local_ba=False,
+                             device="cuda")
+    before = KERNEL.launches
+    msys.run(dss)
+    assert KERNEL.launches - before == len(dss[0])
+    hand = MultiStreamSystem(cfg, n_streams=4, enable_local_ba=False,
+                             device="cuda")
+    g = hand.groups[0]
+    states = stack_states([make_stream_state(cfg, "cuda")] * 4)
+    for f in range(len(dss[0])):
+        staged = hand._stage([d[f] for d in dss])[0]
+        staged.pop("_gts_host")
+        states, _ = g.step(states, staged, hand._frame_draws(f)[0], f > 0)
+        T_wc = np.linalg.inv(states.frame.T_cw.cpu().numpy())
+        for s in range(4):
+            assert _pose_gap_ok(T_wc[s], msys.maps[s].cam_pose[f])
+
+
+@pytest.mark.parametrize("tier", [0, 1])
+def test_window_tier_graph_matches_eager(tracked_map, monkeypatch, tier):
+    """A window graph padded to each WINDOW_TIERS entry, solved from its
+    graph (the third solve replays it) against lm_solve_schur op by op on
+    the card: the cost within 1e-5 relative, poses within 1e-4."""
+    from vdo_slam_tpu_torch.backend import builders
+    from vdo_slam_tpu_torch.backend.factor_graph import (fetch,
+                                                         lm_solve_schur,
+                                                         upload)
+    from vdo_slam_tpu_torch.backend.window_ba import WindowGraphs, _lm_params
+
+    m, cfg = tracked_map
+    monkeypatch.setattr(builders, "WINDOW_TIERS",
+                        (builders.WINDOW_TIERS[tier],))
+    g, v, _ = builders.build_window_graph(m, cfg, window=6)
+    p = _lm_params(cfg)
+    ve, ie = lm_solve_schur(*upload(g, v, "cuda"), p)
+    pe, ce = fetch((ve.poses, ie["cost"]))
+    graphs = WindowGraphs("cuda")
+    for _ in range(3):
+        with graphs.solve(g, v, p) as (vg, ig):
+            pg, cg = fetch((vg.poses, ig["cost"]))
+    assert graphs.records() and graphs.records()[0]["capture_s"] > 0
+    assert abs(float(cg) - float(ce)) <= 1e-5 * float(ce)
+    np.testing.assert_allclose(pg, pe, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,make", [
+    ("solve 6x6", lambda: (torch.eye(6, device="cuda") * 6
+                           + torch.rand(6, 6, device="cuda"),
+                           torch.rand(6, 1, device="cuda"))),
+    ("solve 16x6x6", lambda: (torch.eye(6, device="cuda") * 6
+                              + torch.rand(16, 6, 6, device="cuda"),
+                              torch.rand(16, 6, 1, device="cuda"))),
+    ("solve 4x16x6x6", lambda: (torch.eye(6, device="cuda") * 6
+                                + torch.rand(4, 16, 6, 6, device="cuda"),
+                                torch.rand(4, 16, 6, 1, device="cuda"))),
+    ("solve 96x96", lambda: (torch.eye(96, device="cuda") * 96
+                             + torch.rand(96, 96, device="cuda"),
+                             torch.rand(96, device="cuda"))),
+    ("inv 4096x3x3", lambda: (torch.eye(3, device="cuda") * 3
+                              + torch.rand(4096, 3, 3, device="cuda"),)),
+])
+def test_small_solves_capture(name, make):
+    """The step's and the window solve's small linear solves
+    (solvers/flow_lm.py, solvers/reproj_lm.py, backend/factor_graph.py:
+    solve_ex 6x6 single and batched, solve_ex n x n, inv_ex 3x3 batched)
+    capture into a graph on this card's default linalg backend, and a
+    replay on new inputs equals the eager call."""
+    from vdo_slam_tpu_torch.utils.cuda_graph import GraphedCall
+
+    args = make()
+
+    def fn():
+        if len(args) == 1:
+            return torch.linalg.inv_ex(args[0])[0]
+        return torch.linalg.solve_ex(*args)[0]
+
+    call = GraphedCall(fn, "cuda", name)
+    call()
+    call()                                    # captured
+    for a, b in zip(args, make()):
+        a.copy_(b)
+    got = call().clone()
+    assert call.graph is not None
+    torch.testing.assert_close(got, fn(), rtol=0, atol=0)

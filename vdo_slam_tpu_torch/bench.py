@@ -29,11 +29,12 @@ Against bench.py (deliberate):
   anything (`bench_scene`).  bench.py pickles its scene to /tmp, and that
   pickle holds the JAX package's SyntheticScene; this bench never reads
   it.
-- The solver warmups are one window solve per tracker (on a thread and
-  the tracker's solve stream, where its solves run) and one full BA, on
-  copies of the maps after the warm frames (`_warm_solvers`): eager
-  PyTorch compiles nothing, but a device's first solve pays one-time
-  costs.
+- The window solve's warmup is the System's own: on a card it warms and
+  captures a CUDA graph of each shape tier when it is made
+  (backend/window_ba.py:warmup_window_ba), as bench.py's
+  warmup_window_ba compiles them.  The full BA stays eager: its warmup is
+  one full BA on a copy of the map after the warm frames (`_warm_full_ba`),
+  since a device's first solve pays one-time costs.
 - A failing stage probe fails the run (bench.py logs it and goes on);
   VDO_BENCH_NO_PROBE=1 still skips it.
 - --streams stages the next frame on one uploader thread as bench.py
@@ -309,36 +310,28 @@ def on_callers_streams(devices, fn):
     return run
 
 
-def _warm_solvers(trackers, cfg, full: bool) -> float:
-    """The counterpart of bench.py's solver warmups (bench.py:118,
-    305-325): for each fused tracker, one window solve, and with `full`
-    one full BA, on a copy of its map after the warm frames, thrown away.
-    The solvers' one-time costs on a device (library handles, the first
-    launch of each kernel, the allocator's growth) then fall before the
-    timed region: measured on the card, the first window solve of a fresh
-    process took 6-9x the median of the rest without this.  The window
-    solve runs as the tracker's solves run, on a thread of its own on the
-    tracker's solve stream (`FusedTracker.ba_context`): the allocator keeps
-    its pools per stream, and a thread's library handles go back to a pool
-    that the next solve thread takes from.  The full BA runs where
-    run_sequence runs it, on this thread.  Returns the seconds."""
+def _warm_full_ba(trackers, cfg) -> float:
+    """The counterpart of bench.py's full-BA warmup (bench.py:118,
+    305-325): for each fused tracker, one full BA on a copy of its map
+    after the warm frames, thrown away, where run_sequence runs it (this
+    thread).  The solver's one-time costs on a device (library handles,
+    the first launch of each kernel, the allocator's growth) then fall
+    before the timed region.  Returns the seconds."""
     import copy
-    from concurrent.futures import ThreadPoolExecutor
 
     from .backend.full_ba import full_ba_inplace
-    from .backend.window_ba import local_ba_inplace
-
-    def window(t):
-        with t.ba_context():
-            local_ba_inplace(copy.deepcopy(t.map), cfg, device=t.device)
 
     t0 = time.perf_counter()
     for t in trackers:
-        with ThreadPoolExecutor(1) as pool:
-            pool.submit(window, t).result()
-        if full:
-            full_ba_inplace(copy.deepcopy(t.map), cfg, device=t.device)
+        full_ba_inplace(copy.deepcopy(t.map), cfg, device=t.device)
     return time.perf_counter() - t0
+
+
+def _capture_seconds(window_graphs) -> float:
+    """Seconds the window solves' warm-ups and captures took (when the
+    System was made)."""
+    return sum(r["warm_s"] + r["capture_s"] for wg in window_graphs
+               for r in wg.records())
 
 
 def bench_multistream(n_streams: int, n_frames: int = N_STREAM_FRAMES,
@@ -373,7 +366,8 @@ def bench_multistream(n_streams: int, n_frames: int = N_STREAM_FRAMES,
         staged = msys._stage([d[i + 1] for d in datasets])
         log(f"  warm frame {i}: +{time.perf_counter() - t0:.1f}s")
     log(f"multistream warmup (S={n_streams}): {time.perf_counter() - t0:.1f}s")
-    log(f"window-BA warmup: {_warm_solvers(msys.trackers, cfg, False):.1f}s")
+    log(f"window-BA graphs warmed and captured at construction: "
+        f"{_capture_seconds(msys.window_graphs.values()):.1f}s")
 
     uploader = ThreadPoolExecutor(1)  # see MultiStreamSystem.run
     stage = on_callers_streams([g.device for g in msys.groups], msys._stage)
@@ -451,8 +445,9 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     t0 = time.perf_counter()
     sysm.run_sequence(pds, max_frames=n_warm)
     log(f"warmup {n_warm} frames: {time.perf_counter() - t0:.1f}s")
-    log(f"window- and full-BA warmup: "
-        f"{_warm_solvers([sysm.tracker], cfg, True):.1f}s")
+    log(f"window-BA graphs warmed and captured at construction: "
+        f"{_capture_seconds([sysm.window_graphs]):.1f}s")
+    log(f"full-BA warmup: {_warm_full_ba([sysm.tracker], cfg):.1f}s")
 
     n_timed = len(pds) - n_warm
     n_solves = len(sysm.map.lba_times)

@@ -91,13 +91,17 @@ class FastScoreKernel:
     """The built kernel and its launch count.
 
     `launches` goes up by one for each kernel launch and for nothing else
-    (the CPU path does not count).  `build_seconds` and `build_log` (nvcc's
-    -Xptxas -v report) are filled when this process built or loaded the
-    library.
+    (the CPU path does not count).  A call made while its stream captures a
+    CUDA graph records the launch into the graph without launching it: it
+    counts in `captured`, and each replay of that graph adds the launches
+    its capture recorded to `launches` (utils/cuda_graph.py).
+    `build_seconds` and `build_log` (nvcc's -Xptxas -v report) are filled
+    when this process built or loaded the library.
     """
 
     def __init__(self):
         self.launches = 0
+        self.captured = 0
         self.build_seconds: float | None = None
         self.build_log = ""
         self._lib = None  # the loaded library, kept for the function's life
@@ -147,8 +151,9 @@ class FastScoreKernel:
 
     def launch(self, levels: list[Tensor], th_ini: float, th_min: float):
         """One launch over checked levels on the current stream of their
-        device; no sync.  Returns a (score_ini, score_min) pair per level,
-        views of one allocation."""
+        device (recorded into the graph where that stream captures one); no
+        sync.  Returns a (score_ini, score_min) pair per level, views of one
+        allocation."""
         fn = self.build()
         S = levels[0].shape[0] if levels[0].ndim == 3 else 1
         rows, n_tiles, size = pyramid_layout(
@@ -160,10 +165,14 @@ class FastScoreKernel:
         with torch.cuda.device(out.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(p, n_tiles, S, out.data_ptr(), stream)
+            capturing = torch.cuda.is_current_stream_capturing()
         if err != 0:
             raise RuntimeError(f"fast_score_pyramid_launch failed: "
                                f"cudaError_t {err}")
-        self.launches += 1
+        if capturing:
+            self.captured += 1
+        else:
+            self.launches += 1
         maps = out.split_with_sizes([g.numel() for g in levels
                                      for _ in range(2)])
         return [(maps[2 * k].view(g.shape), maps[2 * k + 1].view(g.shape))

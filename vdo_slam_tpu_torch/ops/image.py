@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import KITTI, OMD, VIRTUAL_KITTI
@@ -70,5 +72,12 @@ def rgb_to_gray(img: Tensor) -> Tensor:
     """(H, W, 3) float in [0, 1] -> (H, W) grayscale (ITU-R 601)."""
     if img.ndim == 2:
         return img
-    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
-    return img[..., :3] @ w
+    return img[..., :3] @ _gray_weights(img.dtype, img.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _gray_weights(dtype, device) -> Tensor:
+    """The ITU-R 601 weights, made once per device: a tensor built from a
+    list is a host-to-device copy, which waits for the stream (and cannot
+    be captured into a CUDA graph) on every call."""
+    return torch.tensor([0.299, 0.587, 0.114], dtype=dtype, device=device)

@@ -8,6 +8,15 @@ device work of all streams on a device is ONE batched step: one
 (S, wire_len) upload, one wire decode, one FAST kernel launch, one mapped
 body, one (S, n) output copy.
 
+Each group steps as the fused tracker steps (pipeline/fused.py): its
+stacked state lives in static buffers, frame 0 initializes eagerly, the
+first tracked frame runs the batched track body eagerly as the warm-up,
+the next one captures it into a CUDA graph (the JAX package's
+`jax.jit(vmap(one))`, multisystem.py:55), and every later frame replays
+it: the group's frame is one input copy per staged array, one draws
+transfer and one graph launch (utils/cuda_graph.py:StepGraph).  Each
+group captures its own graph on its own device.
+
 Each stream owns a FusedTracker for its HOST half (staging of GT, archive,
 window-BA trigger, reports), built without a step or a device state of its
 own.  Stream s therefore archives what a solo FusedTracker on the same
@@ -31,7 +40,9 @@ Window solves run as in the JAX package: each stream's tracker queues its
 solves on a background thread of its own (pipeline/fused.py), so S
 streams that trigger on the same frame solve on S threads at once, each
 on its group's device and on a CUDA stream of its own; `flush` joins
-them all.
+them all.  The solves replay the group's window-solve graphs
+(backend/window_ba.py:WindowGraphs, warmed and captured when the system is
+made), one solve of a shape at a time.
 
 Against the JAX package besides: the drainer and uploader threads are
 replaced by asynchronous pinned copies and CUDA events on the calling
@@ -52,6 +63,8 @@ import torch
 
 from ..config import VDOConfig
 from ..devices import device_list, on_device
+from ..pipeline import draws as draws_mod
+from ..utils.cuda_graph import StepGraph
 from .multistream import (StreamState, _make_batched_step, make_stream_state,
                           stack_states)
 
@@ -80,14 +93,20 @@ def stream_groups(n_streams: int, devices) -> list[tuple[torch.device,
 
 @dataclasses.dataclass
 class _Group:
-    """The streams of one device: their host trackers, their batched step
-    and their stacked state, all on `device`."""
+    """The streams of one device: their host trackers, their eager batched
+    step and its graph, which holds their stacked state, all on
+    `device`."""
 
     device: torch.device
     streams: range
     trackers: list
     step: object
-    states: StreamState
+    graph: StepGraph
+
+    @property
+    def states(self) -> StreamState:
+        """A copy of the group's stacked state."""
+        return self.graph.state.snapshot()
 
 
 class MultiStreamSystem:
@@ -115,21 +134,36 @@ class MultiStreamSystem:
             self.trackers += trackers
             states = stack_states([make_stream_state(cfg, dev)
                                    for _ in streams])
+            step = make_multistream_packed_step(cfg, dev)
             self.groups.append(_Group(
-                dev, streams, trackers,
-                make_multistream_packed_step(cfg, dev), states))
+                dev, streams, trackers, step,
+                StepGraph(step, states, dev,
+                          f"S-stream step, streams {streams.start}-"
+                          f"{streams.stop - 1}", streams=len(streams))))
         self.device = self.groups[0].device
+        # per device, the window solves' graphs, which the trackers solving
+        # there share (backend/window_ba.py:WindowGraphs)
+        self.window_graphs: dict = {}
         if enable_local_ba:
-            from ..backend.window_ba import local_ba_inplace
+            from ..backend.window_ba import (WindowGraphs, local_ba_inplace,
+                                             warmup_window_ba)
 
             for g in self.groups:
+                graphs = self.window_graphs.get(g.device)
+                if graphs is None:
+                    graphs = self.window_graphs[g.device] = WindowGraphs(
+                        g.device)
+                    if g.device.type == "cuda":
+                        with on_device(g.device):
+                            warmup_window_ba(cfg, graphs)
                 for t in g.trackers:
                     t.local_ba_hook = (
-                        lambda m, n_frames=None, dev=g.device:
+                        lambda m, n_frames=None, dev=g.device, wg=graphs:
                         local_ba_inplace(m, cfg, n_frames=n_frames,
-                                         device=dev))
+                                         device=dev, graphs=wg))
         self.initialized = False
         self.frame_id = 0
+        self._generator = torch.Generator()   # CPU: pipeline/draws.py
         # frames whose output copies are queued but not archived yet
         self._pending: deque = deque()
         self.drain_every = max(int(cfg.tracking.fused_drain_chunks), 1)
@@ -158,7 +192,8 @@ class MultiStreamSystem:
         return out
 
     def _frame_draws(self, fid: int) -> list[dict]:
-        """Frame fid's draws, per group on its device.  The trackers share
+        """Frame fid's draws, per group on its device, for the eager
+        batched step (`_Group.step`).  The trackers share
         one config, hence one seed, so all streams draw the same numbers,
         as a solo tracker on each stream would: drawn once per group and
         broadcast over its streams."""
@@ -182,13 +217,14 @@ class MultiStreamSystem:
         t0 = time.perf_counter()
         staged = staged if staged is not None else self._stage(fds)
         fid = self.frame_id
+        # one draw for every stream, as a solo tracker on each would draw
+        u = draws_mod.frame_uniforms(self.cfg, fid, self._generator)
         gts, vecs = [], []
-        for g, st, u in zip(self.groups, staged, self._frame_draws(fid)):
+        for g, st in zip(self.groups, staged):
             st = dict(st)
             gts += st.pop("_gts_host")
             with on_device(g.device):
-                g.states, v = g.step(g.states, st, u, self.initialized)
-            vecs.append(v)
+                vecs.append(g.graph(st, u, self.initialized))
         self.initialized = True
         self.frame_id += 1
         for t in self.trackers:

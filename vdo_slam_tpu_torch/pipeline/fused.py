@@ -11,12 +11,24 @@ host buffer is queued right behind the step, and the previous frame is
 archived while the device works, so a call reports the frame before the
 one it was given and `flush` reports the last.
 
+The step runs as the JAX package's jitted step runs: compiled once and
+replayed.  The tracker holds its state in static buffers and steps it
+through a `StepGraph` (utils/cuda_graph.py): frame 0 runs the
+initialization eagerly (the JAX step's lax.cond picks it by the state's
+flag, here a host bool), the first tracked frame runs the track body
+eagerly as the warm-up, the next one captures it into a CUDA graph, and
+every later frame copies its staged inputs and draws into the graph's
+input buffers and replays the graph: the step and `pack_outputs` in one
+host call.  On the CPU the same buffers are stepped eagerly.
+`tracker.state` reads a copy of the state buffers and assigning it
+copies into them (a checkpoint's resume).
+
 `grab_chunk` runs `fused_chunk` frames per call.  The JAX package unrolls
-a lax.scan over the chunk inside one program; eager PyTorch has nothing to
-unroll, so the chunk goes up in one (C, wire_len) transfer, its frames are
-stepped in a Python loop with no host sync between them (`step_chunk`, the
-counterpart of the JAX tracker's jitted scan), and the C output
-vectors are stacked on the device and copied back in one transfer.  Finished chunks
+a lax.scan over the chunk inside one program; here the chunk goes up in
+one (C, wire_len) transfer, its frames are stepped in a Python loop with
+no host sync between them (`step_chunk`, the counterpart of the JAX
+tracker's jitted scan), one graph replay per frame, and the C output
+vectors are gathered on the device and copied back in one transfer.  Finished chunks
 wait in a batch; every `fused_drain_chunks`-th chunk the batch is archived
 in frame order.  The JAX package fetches and archives a batch on a drainer
 thread and hands out its reports when the thread is done; here the copies
@@ -62,6 +74,7 @@ from ..devices import on_device
 from ..io.dataset import FrameData
 from ..io.packing import pack_frame, wire_kwargs
 from ..parallel.multistream import make_frame_step, make_stream_state
+from ..utils.cuda_graph import StepGraph
 from . import draws as draws_mod
 from .map_state import MapState
 from .tracking import (_np_inv, obj_pose_parsing_kt, obj_pose_parsing_ox,
@@ -139,6 +152,9 @@ class FusedTracker:
     build_step=False makes a tracker that only stages, archives and
     triggers window solves (the host half the S-stream system uses, one per
     stream): it builds no step and no device state.
+
+    `step` is the eager packed step (parallel/multistream.py:
+    make_frame_step); the tracker runs it through its StepGraph.
     """
 
     MAX_FRAMES = draws_mod.MAX_FRAMES
@@ -156,7 +172,9 @@ class FusedTracker:
         self.drain_chunks = max(int(cfg.tracking.fused_drain_chunks), 1)
         if build_step:
             self.step = make_frame_step(cfg, self.device, packed=True)
-            self.state = make_stream_state(cfg, self.device)
+            self._graph = StepGraph(self._packed_step,
+                                    make_stream_state(cfg, self.device),
+                                    self.device, "fused packed step")
         self.initialized = False  # the JAX state's flag, kept on the host
         self._generator = torch.Generator()   # CPU: pipeline/draws.py
         self.frame_id = 0
@@ -188,6 +206,33 @@ class FusedTracker:
         # the solves' stream on this tracker's card, taken once
         self.ba_stream = (torch.cuda.Stream(self.device)
                           if self.device.type == "cuda" else None)
+
+    @property
+    def state(self):
+        """A copy of the stream state: later steps leave it alone."""
+        return self._graph.state.snapshot()
+
+    @state.setter
+    def state(self, state) -> None:
+        """Copy `state` into the state buffers the step runs on."""
+        self._graph.state.load(state)
+
+    def _packed_step(self, state, inputs, uniforms, initialized):
+        """The eager step of one frame, its outputs packed: what the step
+        graph captures."""
+        state, metrics = self.step(state, inputs,
+                                   draws_mod.UniformDraws(uniforms),
+                                   initialized)
+        return state, pack_outputs(state, metrics)
+
+    def _step_frame(self, inputs: dict, frame_id: int) -> torch.Tensor:
+        """Step the state buffers by one staged frame with frame
+        `frame_id`'s draws; returns its output vector, which the next step
+        overwrites."""
+        vec = self._graph(inputs, draws_mod.frame_uniforms(
+            self.cfg, frame_id, self._generator), self.initialized)
+        self.initialized = True
+        return vec
 
     def _gt_pose(self, raw):
         # rebased so the first frame's GT is exactly I, even mid-sequence
@@ -294,7 +339,8 @@ class FusedTracker:
 
         staged, draws = self.probe_inputs(fd)
         probe = make_scan_probe(self.cfg, self.device, n_iters=n_iters)
-        times, rtt = probe(self.state, staged, draws, rounds=rounds)
+        times, rtt = probe(self._graph.state.tree, staged, draws,
+                           rounds=rounds)
         self._stage_ms = np.asarray([max(times[k], 0.0) for k in STAGE_SPANS],
                                     np.float32)
         self._probe_rtt_ms = rtt
@@ -305,9 +351,10 @@ class FusedTracker:
 
     def _to_host(self, vec: torch.Tensor):
         """Queue the copy of an output tensor to a pinned host buffer;
-        returns (host tensor, event to wait on or None)."""
-        if self.device.type != "cuda":
-            return vec, None
+        returns (host tensor, event to wait on or None).  The copy is the
+        caller's: the next step may overwrite `vec`."""
+        if vec.device.type != "cuda":
+            return vec.clone(), None
         host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
         host.copy_(vec, non_blocking=True)
         done = torch.cuda.Event()
@@ -325,11 +372,7 @@ class FusedTracker:
         inputs = dict(staged) if staged is not None \
             else self.device_inputs(fd)
         T_cw_gt = inputs.pop("_T_cw_gt_host")
-        draws = draws_mod.UniformDraws(self.frame_draws(self.frame_id))
-        self.state, metrics = self.step(self.state, inputs, draws,
-                                        self.initialized)
-        self.initialized = True
-        host, done = self._to_host(pack_outputs(self.state, metrics))
+        host, done = self._to_host(self._step_frame(inputs, self.frame_id))
         rep_prev = self._drain_pending()
         self._pending = (fd, T_cw_gt, self.frame_id, host, done, t0)
         self.frame_id += 1
@@ -342,19 +385,27 @@ class FusedTracker:
         "_T_cw_gt_host") from `state`, frame first_frame_id + c taking
         that frame's draws, with no host sync between frames: the
         counterpart of the JAX tracker's jitted scan (fused.py:133-145).
-        Returns (state, the (C, n) stacked output vectors, still on the
-        device).  The first frame starts uninitialized only if the tracker
-        has stepped no frame yet."""
-        vecs = []
-        for c in range(inputs["packed"].shape[0]):
-            draws = draws_mod.UniformDraws(
-                self.frame_draws(first_frame_id + c))
-            state, metrics = self.step(
-                state, {k: v[c] for k, v in inputs.items()}, draws,
-                self.initialized)
-            self.initialized = True
-            vecs.append(pack_outputs(state, metrics))
-        return state, torch.stack(vecs)
+        `state` is copied into the tracker's state buffers, which the chunk
+        then steps.  Returns (a copy of the new state, the (C, n) output
+        vectors, still on the device); neither changes with later steps.
+        The first frame starts uninitialized only if the tracker has
+        stepped no frame yet."""
+        self.state = state
+        vecs = self._step_chunk(inputs, first_frame_id)
+        return self.state, vecs
+
+    def _step_chunk(self, inputs: dict, first_frame_id: int):
+        """step_chunk on the state buffers as they are; returns the (C, n)
+        output vectors in a tensor of their own."""
+        C = inputs["packed"].shape[0]
+        vecs = None
+        for c in range(C):
+            vec = self._step_frame({k: v[c] for k, v in inputs.items()},
+                                   first_frame_id + c)
+            if vecs is None:
+                vecs = vec.new_empty((C,) + tuple(vec.shape))
+            vecs[c].copy_(vec)
+        return vecs
 
     def grab_chunk(self, fds, staged: dict | None = None,
                    n_real: int | None = None) -> list[dict]:
@@ -375,7 +426,7 @@ class FusedTracker:
         inputs = dict(staged) if staged is not None \
             else self.device_inputs_chunk(fds)
         gts = inputs.pop("_T_cw_gt_host")
-        self.state, vecs = self.step_chunk(self.state, inputs, self.frame_id)
+        vecs = self._step_chunk(inputs, self.frame_id)
         host, done = self._to_host(vecs)   # one (C, n) copy
         if self._pending_chunk is not None:
             self._pending_batch.append(self._pending_chunk)

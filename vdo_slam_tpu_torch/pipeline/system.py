@@ -16,7 +16,10 @@ in mode "fused" on the tracker's background solve thread, which the
 tracker's flush joins (at the end of run_sequence, and before metrics(),
 timing() and save_results() read the map), as in the JAX package.  With
 enable_global_ba, run_sequence ends with the full-batch solve, after the
-window solves, and keeps its report in `full_ba_report`.
+window solves, and keeps its report in `full_ba_report`.  On a card the
+window solves run from CUDA graphs (backend/window_ba.py:WindowGraphs),
+one per shape tier, warmed and captured when the System is made
+(`warmup_window_ba`), before tracking starts.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ class System:
         if not isinstance(cfg, VDOConfig):
             cfg = load_settings(cfg)
         # imported here: parallel/ and backend/ import pipeline/
-        from ..backend.window_ba import local_ba_inplace
+        from ..backend.window_ba import (WindowGraphs, local_ba_inplace,
+                                         warmup_window_ba)
         from .fused import FusedTracker
 
         self.cfg = cfg
@@ -66,11 +70,15 @@ class System:
             self.tracker = Tracker(cfg, self.map, device=device)
         self.enable_global_ba = enable_global_ba
         self.full_ba_report: dict | None = None
+        self.window_graphs: WindowGraphs | None = None
         if enable_local_ba:
             dev = self.tracker.device
+            graphs = self.window_graphs = WindowGraphs(dev)
+            if dev.type == "cuda":
+                warmup_window_ba(cfg, graphs)
             self.tracker.local_ba_hook = (
                 lambda m, n_frames=None: local_ba_inplace(
-                    m, cfg, n_frames=n_frames, device=dev))
+                    m, cfg, n_frames=n_frames, device=dev, graphs=graphs))
 
     def track_rgbd(self, fd: FrameData) -> dict:
         """Feed one frame.  Mode "reference" returns its report; mode

@@ -11,7 +11,8 @@ bench (`bench_scene`, `bench_config` with its VDO_BENCH_* knobs,
                      followed by torch.cuda.synchronize(): the pinned
                      (C, wire_len) copy and its staging on the host.
   dispatch_ms_frame  `step_chunk` on two pre-staged chunks in turn, with no
-                     sync until the end: the host's time to queue a step.
+                     sync until the end: the host's time to queue a step,
+                     read before that sync.
   device_ms_frame    the same steps' time on the device: the sum of their
                      kernels and copies under torch.profiler (CUDA activity
                      only), with launches_per_frame, the kernels counted.
@@ -21,15 +22,18 @@ bench (`bench_scene`, `bench_config` with its VDO_BENCH_* knobs,
                      on the tracker's background thread, overlapping the
                      steps; the final flush waits for the last).
   gap_ms_frame_ba_off / _ba_on
-                     loop - max(upload, dispatch).
+                     loop - max(upload, dispatch, device), the original's
+                     loop - max(upload, device phase).
 
 In the JAX package the step is one compiled program, so its device phase
-is one number: chunk steps never synced.  In eager PyTorch the host queues
-each of the step's kernels itself, so that phase is two numbers: the
-host's dispatch time, and the device's time for the kernels queued.  The
-card is busy for a small share of a step, so the dispatch time is what
-bounds the loop; the gap is the loop's host work outside the step
-(reading and staging frames, archiving, the drains, and with BA on what
+is one number: chunk steps never synced.  Here that phase is two numbers:
+the host's dispatch time, and the device's time for the kernels queued.
+Eager, the host queued each of the step's ~6,500 kernels itself and the
+dispatch time bounded the loop; on a card the step is now one graph
+replay per frame (utils/cuda_graph.py), the dispatch a few ms, and the
+device time bounds the loop.  The gap is the loop's work beyond the
+slowest of the three (reading and staging frames, archiving, the drains
+where they do not overlap the card, and with BA on what
 the window solves' thread costs the tracker's: the interpreter lock the
 two share, and the wait for the last solve).  On the CPU the step's
 ops run as they are dispatched, so device_ms_frame is the dispatch time
@@ -151,8 +155,10 @@ def main(n_frames: int = 48, device="cuda", width: int = bench.W,
     t0 = time.perf_counter()
     for i in range(reps):
         state, vecs = tr.step_chunk(state, staged[i % 2], fid + i * C)
-    sync(device)
+    # read before the wait: once the step is a graph replay, the host
+    # queues faster than the card runs, and the wait is the card's time
     disp = (time.perf_counter() - t0) / (reps * C) * 1e3
+    sync(device)
     steps += (reps + 1) * C
 
     # device: two of the same chunk steps under the profiler
@@ -181,10 +187,11 @@ def main(n_frames: int = 48, device="cuda", width: int = bench.W,
         out["drives"].append(dict(counts, what=f"run_sequence, window BA "
                                                f"{tag}"))
         out[f"loop_ms_frame_ba_{tag}"] = loop
-        out[f"gap_ms_frame_ba_{tag}"] = loop - max(up, disp)
+        gap = loop - max(up, disp, dev)
+        out[f"gap_ms_frame_ba_{tag}"] = gap
         bench.log(f"loop: {loop:.3f} ms/frame ({nt} frames, window BA "
                   f"{tag}) = {1e3 / loop:.3f} fps; gap (loop - max(upload, "
-                  f"dispatch)): {loop - max(up, disp):.3f} ms/frame [{card}]")
+                  f"dispatch, device)): {gap:.3f} ms/frame [{card}]")
     out["steps"] = steps
     check_phases(out, "probe_loop")
     return out
