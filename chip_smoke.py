@@ -69,8 +69,9 @@ Phases, in order (any failure raises and exits nonzero):
      solves none of which raises its cost, a full BA that lowers it, and
      metrics() and metrics(refined=True) within the gates against the JAX
      package's System(mode="reference") (JAX_REF_HOST).  Prints fps, the
-     five spans of timing(), peak memory, the host syncs, copies and
-     kernel launches per steady frame (torch.profiler), and the gap between
+     five spans of timing(), peak memory, the host syncs, copies, host
+     launch calls and kernel launches per steady frame (torch.profiler;
+     the stages replay their graphs from frame 2 on), and the gap between
      one frame on the card and the same frame on the CPU, both started from
      the same tracker state with the same draws;
   9. the options, 25 frames each through System(mode="reference"), BA off,
@@ -162,6 +163,21 @@ Phases, in order (any failure raises and exits nonzero):
      map, graphed against eager: the cost within 1e-5 relative, the poses
      within the bounds of (a), wall ms per solve each way, and each
      graph's warm-up and capture seconds and pool bytes.
+  17. the full BA's graphs and the host Tracker's stage graphs (PR 14),
+     graphed against eager in this process: (a) phase 5's map from
+     before its full BA at bench.py's caps, warmup_full_ba (its seconds
+     and each capture's record), then the full BA from the graphs against
+     the eager full BA (wall ms per solve, solve seconds, host launch
+     calls, the cost within 1e-5 relative, the refined poses within the
+     bounds of 16a); (b) phase 8's 100 frames (its run is the graphed
+     one) through the host Tracker with its stage functions called
+     directly: each frame's pose within the bounds of 16a with the same
+     objects, equal object estimates, fps over tracking each way, host
+     launch calls, host waits and kernels per steady frame each way (the
+     FAST kernels the profiler saw equal to KERNEL.launches), peak memory
+     each way, and each stage graph's record.  The bench's --hard (13a)
+     prints its full BA's solve from its graphs.  The script prints its
+     total seconds before the kernels' line.
 Phases 5-7, 12b, 13a, 13b and 14 print the seconds the tracker's thread
 waited in flush for window solves still running (chip_smoke wraps
 FusedTracker._join_ba to time it) and fail on a tracker whose
@@ -1456,20 +1472,27 @@ def _count_syncs(prof) -> tuple[int, int]:
 
 
 def steady_frames(cfg, ds, device, card: str, n_warm: int = 3,
-                  n_prof: int = 3) -> dict:
-    """Phase 8b: host syncs, copies and kernel launches per frame of the
-    host Tracker in steady state (frames n_warm .. n_warm + n_prof - 1
-    under torch.profiler, BA off), and the device busy share."""
+                  n_prof: int = 3, plain: bool = False) -> dict:
+    """Phase 8b (and 17b's eager side, plain=True: the stage functions
+    called directly, no graphs): host syncs, copies, host launch calls
+    (LAUNCH_CALLS) and kernel launches per frame of the host Tracker in
+    steady state (frames n_warm .. n_warm + n_prof - 1 under
+    torch.profiler, BA off), the device busy share, and the FAST kernels
+    in the profile against KERNEL.launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
     from vdo_slam_tpu_torch.pipeline import System
 
     sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
                   device=device)
+    if plain:
+        plain_stages(sysm.tracker)
     for f in range(n_warm):
         sysm.track_rgbd(ds[f])
     torch.cuda.synchronize()
+    before = KERNEL.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1477,24 +1500,51 @@ def steady_frames(cfg, ds, device, card: str, n_warm: int = 3,
             sysm.track_rgbd(ds[f])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    launches = sum(1 for e in dev
-                   if not e.name.startswith(("Memcpy", "Memset")))
+    counted = KERNEL.launches - before
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
     dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     syncs, copies = _count_syncs(prof)
+    calls = sum(1 for e in events if e.name in LAUNCH_CALLS)
+    fast = sum(1 for e in kernels if KERNEL_NAME in e.name)
     out = {"syncs_per_frame": syncs / n_prof,
            "copies_per_frame": copies / n_prof,
-           "launches_per_frame": launches / n_prof,
+           "host_calls_per_frame": calls / n_prof,
+           "launches_per_frame": len(kernels) / n_prof,
            "device_ms_per_frame": dev_ms / n_prof,
-           "wall_ms_per_frame": wall / n_prof}
-    print(f"reference path, steady frames {n_warm}-{n_warm + n_prof - 1} "
-          f"under torch.profiler: {out['launches_per_frame']:.1f} kernel "
-          f"launches, {out['syncs_per_frame']:.1f} host waits "
-          f"(cuda*Synchronize), {out['copies_per_frame']:.1f} memcpy calls "
-          f"per frame; {out['device_ms_per_frame']:.3f} ms on the device in "
+           "wall_ms_per_frame": wall / n_prof,
+           "fast_profiled": fast, "fast_counted": counted}
+    what = "eager stages" if plain else "stage graphs"
+    print(f"reference path ({what}), steady frames {n_warm}-"
+          f"{n_warm + n_prof - 1} under torch.profiler: "
+          f"{out['launches_per_frame']:.1f} kernel launches, "
+          f"{out['host_calls_per_frame']:.1f} host launch calls, "
+          f"{out['syncs_per_frame']:.1f} host waits (cuda*Synchronize), "
+          f"{out['copies_per_frame']:.1f} memcpy calls per frame; "
+          f"{out['device_ms_per_frame']:.3f} ms on the device in "
           f"{out['wall_ms_per_frame']:.3f} ms per frame, busy share "
-          f"{dev_ms / wall:.4f} [{card}]")
+          f"{dev_ms / wall:.4f}; FAST {fast} in the profile / {counted} "
+          f"counted over {n_prof} frames [{card}]")
+    if fast != counted or counted != n_prof:
+        raise RuntimeError(f"reference path ({what}): the profiler saw "
+                           f"{fast} FAST kernels, KERNEL.launches counted "
+                           f"{counted} over {n_prof} frames")
     return out
+
+
+# the host Tracker's stages that run every tracked frame, each a
+# GraphedStage (vdo_slam_tpu_torch/pipeline/tracking.py)
+HOST_STAGES = ("_prepare", "_mask_prop", "_inherit", "_camera",
+               "_scene_flow", "_objects", "_renew_static", "_renew_dynamic")
+
+
+def plain_stages(tracker):
+    """Phase 17b's eager side: the tracker's stage functions called
+    directly, op by op, where their graphs stood."""
+    for name in HOST_STAGES:
+        setattr(tracker, name, getattr(tracker, name).fn)
+    return tracker
 
 
 def frame_gap(cfg, ds, device, card: str, fid: int = 5) -> dict:
@@ -1505,7 +1555,6 @@ def frame_gap(cfg, ds, device, card: str, fid: int = 5) -> dict:
     import tempfile
 
     from vdo_slam_tpu_torch.pipeline import System
-    from vdo_slam_tpu_torch.pipeline.draws import UniformDraws, frame_uniforms
     from vdo_slam_tpu_torch.utils.checkpoint import (save_checkpoint,
                                                      tracker_from_numpy)
 
@@ -1517,12 +1566,10 @@ def frame_gap(cfg, ds, device, card: str, fid: int = 5) -> dict:
         save_checkpoint(sysm.tracker, f"{tmp}/ck.pkl")
         with open(f"{tmp}/ck.pkl", "rb") as fh:
             payload = pickle.load(fh)
-    u = frame_uniforms(cfg, fid, torch.Generator())
     reps, secs = {}, {}
     for name, d in (("card", device), ("cpu", torch.device("cpu"))):
+        # each tracker's own draws of frame fid: the same on both devices
         tr = tracker_from_numpy(payload, cfg, device=d)
-        draws = UniformDraws({k: v.to(d) for k, v in u.items()})
-        tr._frame_draws = lambda dr=draws: dr
         t0 = time.perf_counter()
         reps[name] = tr.grab_frame(ds[fid])
         secs[name] = time.perf_counter() - t0
@@ -1619,7 +1666,8 @@ def reference_path(scene, device, card: str) -> dict:
     gap = frame_gap(bench_config(), ds, device, card)
     return {"launches": launches, "fps": n / tracking_s, "peak_bytes": peak,
             "metrics": metrics, "steady": steady, "gap": gap,
-            "timing": sysm.timing()}
+            "timing": sysm.timing(), "reports": reports, "system": sysm,
+            "ds": ds}
 
 
 def omd_scene_config():
@@ -2354,6 +2402,13 @@ def bench_hard(device, card: str) -> dict:
     first = solves[0] if solves else math.nan
     rest = float(np.median(solves[1:])) if len(solves) > 1 else math.nan
     full = res["full_ba"]
+    print(f"bench --hard, the full BA replayed from its graphs: solve "
+          f"{full['t_solve_s']:.4f} s, build {full['t_build_s']:.4f} s, "
+          f"write-back {full['t_writeback_s']:.4f} s; captures "
+          f"{json.dumps(res['full_ba_graphs'])} [{card}]")
+    if not res["full_ba_graphs"]:
+        raise RuntimeError("bench --hard: the full BA's graphs were not "
+                           "captured")
     print(f"bench --hard: {rec['value']} fps over {n - port_bench.warmup_frames()}"
           f" timed frames (tracking, {len(solves)} window solves and the "
           f"full BA: {full['t_build_s'] + full['t_solve_s'] + full['t_writeback_s']:.3f} s); "
@@ -3075,6 +3130,169 @@ def graphs_phase(path: dict, streams: dict, ba: dict, pds, device,
             "s4_gap": worst}
 
 
+# phase 17: the full BA's graphs and the host Tracker's stage graphs,
+# graphed against eager.  The full BA is phase 5's map from before its full
+# BA at bench.py's caps, held within GRAPH_COST_RTOL of the eager cost and
+# the stream bounds per pose; the host Tracker is phase 8's 100 frames,
+# held per frame to the stream bounds with equal objects, and to equal
+# object estimates over the run.
+N_FULL_BA_REPS = 3
+
+
+def full_ba_graphs(ba: dict, device, card: str) -> dict:
+    """Phase 17a: warmup_full_ba for phase 5's map at bench.py's caps
+    (bench_ba_config), then full_ba_inplace from the graphs against the
+    eager full_ba_inplace on copies of the map from before phase 5's full
+    BA: each capture's record, wall ms per solve (the median of
+    N_FULL_BA_REPS), the report's solve seconds and host launch calls per
+    solve each way, the costs and their relative gap, and the largest
+    refined pose gap."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
+                                                    full_ba_inplace,
+                                                    warmup_full_ba)
+
+    cfg = bench_ba_config()
+    pre = ba["pre_full_map"]
+    graphs = FullBAGraphs(device)
+    t0 = time.perf_counter()
+    warmup_full_ba(cfg, pre.num_frames, graphs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    recs = graphs.records()
+    print(f"17a, warmup_full_ba over {pre.num_frames} frames at bench.py's "
+          f"caps: {warm:.3f} s; captures {json.dumps(recs)} [{card}]")
+    out = {"warm_s": warm, "records": recs}
+    for name, g in (("eager", None), ("graphed", graphs)):
+        maps = [copy.deepcopy(pre) for _ in range(N_FULL_BA_REPS + 1)]
+        walls, reps = [], []
+        for m in maps[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reps.append(full_ba_inplace(m, cfg, device=device, graphs=g))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        calls, kernels, _ = _host_launches(
+            lambda: full_ba_inplace(maps[0], cfg, device=device, graphs=g))
+        rep = reps[-1]
+        out[name] = {"wall_ms": float(np.median(walls)),
+                     "solve_s": float(np.median([r["t_solve_s"]
+                                                 for r in reps])),
+                     "host_calls": calls, "kernels": kernels,
+                     "cost0": rep["cost0"], "cost": rep["cost"],
+                     "iters": rep["iters_run"], "map": maps[-1]}
+        print(f"17a, {name} full BA: wall {out[name]['wall_ms']:.3f} ms per "
+              f"solve (median of {N_FULL_BA_REPS}: {json.dumps(walls)}), "
+              f"solve {out[name]['solve_s']:.4f} s (build "
+              f"{rep['t_build_s']:.4f} s, write-back "
+              f"{rep['t_writeback_s']:.4f} s); {calls} host launch calls and "
+              f"{kernels} kernels per solve; {rep['iters_run']} LM "
+              f"iterations, cost {rep['cost0']:.9g} -> {rep['cost']:.9g} "
+              f"[{card}]")
+    e, g = out["eager"], out["graphed"]
+    rel = abs(g["cost"] - e["cost"]) / e["cost"]
+    gaps = [_pose_gap(a, b) for a, b in zip(g["map"].cam_pose_rf,
+                                           e["map"].cam_pose_rf)]
+    dt, dr = max(x[0] for x in gaps), max(x[1] for x in gaps)
+    out.update(cost_rel=rel, pose_gap=(dt, dr))
+    for k in ("eager", "graphed"):
+        del out[k]["map"]
+    print(f"17a, full BA graphed against eager: cost {g['cost']:.9g} / "
+          f"{e['cost']:.9g} (relative gap {rel:.3e}); largest refined pose "
+          f"gap {dt:.3e} m, {dr:.3e} deg; wall {g['wall_ms']:.3f} / "
+          f"{e['wall_ms']:.3f} ms per solve "
+          f"({e['wall_ms'] / g['wall_ms']:.2f}x), host launch calls "
+          f"{g['host_calls']} / {e['host_calls']} [{card}]")
+    if not rel <= GRAPH_COST_RTOL:
+        raise RuntimeError(f"17a: cost {g['cost']} graphed, {e['cost']} "
+                           f"eager")
+    if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+        raise RuntimeError(f"17a: refined poses {dt} m, {dr} deg apart")
+    if g["iters"] != e["iters"] or len(recs) != len(graphs._calls):
+        raise RuntimeError(f"17a: {g['iters']} / {e['iters']} LM "
+                           f"iterations, {len(recs)} captures of "
+                           f"{len(graphs._calls)} graphs")
+    return out
+
+
+def _eager_reference_drive(ds, device):
+    """Phase 17b's reference: phase 8's run (System(bench_ba_config()),
+    mode "reference", both BA passes) with the host Tracker's stage
+    functions called directly, op by op (the System's one full BA runs
+    eagerly, as its graphs' warm-up, in both runs).  Returns (system,
+    reports, seconds of tracking alone, peak bytes)."""
+    from vdo_slam_tpu_torch.pipeline import System
+
+    sysm = System(bench_ba_config(), device=device)
+    plain_stages(sysm.tracker)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reports = sysm.run_sequence(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    full = sysm.full_ba_report
+    tracking_s = (wall - full["t_build_s"] - full["t_solve_s"]
+                  - full["t_writeback_s"] - sum(sysm.map.lba_times) / 1e3)
+    return sysm, reports, tracking_s, torch.cuda.max_memory_allocated()
+
+
+def tracker_graphs(ref: dict, device, card: str) -> dict:
+    """Phase 17b: phase 8's 100 frames through the host Tracker's stage
+    graphs (phase 8's run) against the stage functions called directly:
+    each frame's pose within the stream bounds and the same objects, the
+    same object estimates; fps over tracking each way, host launch calls,
+    host waits and FAST kernels per steady frame each way (phase 8b's
+    profile for the graphs), peak memory each way, and each stage graph's
+    record."""
+    from vdo_slam_tpu_torch.eval.results import metric_report
+
+    ds = ref["ds"]
+    esys, ereps, tracking_s, peak = _eager_reference_drive(ds, device)
+    n = len(ds)
+    fps_e = n / tracking_s
+    dt = dr = 0.0
+    for a, b in zip(ref["reports"], ereps, strict=True):
+        t, r = _pose_gap(_np_inv(a["T_cw"]), _np_inv(b["T_cw"]))
+        dt, dr = max(dt, t), max(dr, r)
+        ids = [[(o["model_label"], o["sem_label"], o["status"])
+                for o in rep["objects"]] for rep in (a, b)]
+        if ids[0] != ids[1]:
+            raise RuntimeError(f"17b, frame {a['frame_id']}: objects "
+                               f"{ids[0]} graphed, {ids[1]} eager")
+    est_g = ref["metrics"]["initial"]["n_obj_estimates"]
+    est_e = metric_report(esys.map)["n_obj_estimates"]
+    steady = steady_frames(bench_config(), ds, device, card, plain=True)
+    g, e = ref["steady"], steady
+    recs = ref["system"].tracker.graph_records()
+    print(f"17b, host Tracker, {n} frames graphed (phase 8) against eager "
+          f"stage calls: largest pose gap {dt:.3e} m, {dr:.3e} deg, equal "
+          f"objects every frame; object estimates {est_g} / {est_e}; "
+          f"{ref['fps']:.3f} / {fps_e:.3f} fps over tracking; per steady "
+          f"frame {g['host_calls_per_frame']:.1f} / "
+          f"{e['host_calls_per_frame']:.1f} host launch calls, "
+          f"{g['syncs_per_frame']:.1f} / {e['syncs_per_frame']:.1f} host "
+          f"waits, {g['launches_per_frame']:.1f} / "
+          f"{e['launches_per_frame']:.1f} kernels, "
+          f"{g['wall_ms_per_frame']:.3f} / {e['wall_ms_per_frame']:.3f} ms "
+          f"wall; peak memory {ref['peak_bytes']} / {peak} bytes "
+          f"({ref['peak_bytes'] / 2**20:.1f} / {peak / 2**20:.1f} MiB) "
+          f"[{card}]")
+    for rec in recs:
+        print(f"17b, stage graph {json.dumps(rec)} [{card}]")
+    if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+        raise RuntimeError(f"17b: graphed against eager {dt} m, {dr} deg")
+    if est_g != est_e:
+        raise RuntimeError(f"17b: {est_g} object estimates graphed, "
+                           f"{est_e} eager")
+    if len(recs) != len(HOST_STAGES):
+        raise RuntimeError(f"17b: {len(recs)} stage graphs captured, want "
+                           f"{len(HOST_STAGES)}")
+    return {"pose_gap": (dt, dr), "fps": (ref["fps"], fps_e),
+            "steady": (g, e), "peak_bytes": (ref["peak_bytes"], peak),
+            "records": recs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3193,6 +3411,10 @@ def main() -> int:
     graphs = graphs_phase(path, streams, ba, pds, device, card)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s [{card}]")
     phase_done("16 (graphs: graphed against eager)")
+    full_graphs = full_ba_graphs(ba, device, card)
+    phase_done("17a (the full BA's graphs against eager)")
+    host_graphs = tracker_graphs(ref, device, card)
+    phase_done("17b (the host Tracker's stage graphs against eager)")
     if disk["not_run"]:
         print(f"NOT RUN (a host library is missing; not passed): "
               f"{', '.join(disk['not_run'])}")
@@ -3222,6 +3444,10 @@ def main() -> int:
         "launches_dryrun": graft["launches"],
         "launches_graphs_dispatch": graphs["dispatch"]["graphed"][
             "fast_counted"],
+        "launches_host_tracker_graphs": host_graphs["steady"][0][
+            "fast_counted"],
+        "launches_host_tracker_eager": host_graphs["steady"][1][
+            "fast_counted"],
         "streams": N_STREAMS,
         "streams_throughput": N_THROUGHPUT,
         "max_abs_err": max_err,
@@ -3238,6 +3464,9 @@ def main() -> int:
         "bound_by": kern["bound_by"],
         "library_ms": None,
     }]}))
+    print(f"chip_smoke: {time.perf_counter() - t_phase[1]:.1f} s in all "
+          f"(full BA graphed {full_graphs['graphed']['wall_ms']:.3f} ms per "
+          f"solve against {full_graphs['eager']['wall_ms']:.3f} eager)")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

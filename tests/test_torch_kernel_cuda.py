@@ -19,9 +19,11 @@ the card, and the CUDA graphs (utils/cuda_graph.py): the graphed fused
 tracker and S = 4 system against their steps called op by op on the card
 (the step's card-vs-CPU bounds), KERNEL.launches up by one per replayed
 frame, each window-solve tier's graph against lm_solve_schur op by op
-(cost within 1e-5 relative, poses within 1e-4), and the small linear
-solves of the step and the window solve captured and replayed bit-equal
-to the eager call.  Every test here skips without a
+(cost within 1e-5 relative, poses within 1e-4), the full BA's graph
+against the eager full BA (cost within 1e-5 relative, poses within
+1e-5), each host Tracker stage's replay against its eager call on the
+same inputs, and the small linear solves of the step and the window solve
+captured and replayed bit-equal to the eager call.  Every test here skips without a
 CUDA device.  This file imports no JAX, so it runs on a machine without
 it:
 
@@ -370,15 +372,13 @@ def test_grouped_streams_on_card():
 
 
 def _reference_run(cfg, ds, dev):
-    """System mode "reference" on `dev`, each frame's draws from a numpy
-    generator seeded with the frame index (the same on either device);
-    returns (reports, FAST launches)."""
+    """System mode "reference" on `dev` with the tracker's own draws
+    (pipeline/draws.py: the same on either device); returns (reports, FAST
+    launches)."""
     from vdo_slam_tpu_torch.pipeline import System
 
     sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
                   device=dev)
-    tr = sysm.tracker
-    tr._frame_draws = lambda: NumpyDraws(tr.frame_id, dev)
     before = KERNEL.launches
     reps = sysm.run_sequence(ds)
     return reps, KERNEL.launches - before
@@ -433,11 +433,11 @@ def _bench_cfg(k1: float = 0.0, k2: float = 0.0):
 def _one_frame_on_both(cfg, ds, fid: int, tmp_path):
     """Frame fid by the host Tracker on the CPU and on the card, both from
     the card's state after frame fid - 1 (a checkpoint payload) with the
-    same draws: {"cpu": report, "cuda": report}."""
+    same draws (each tracker's own for frame fid): {"cpu": report, "cuda":
+    report}."""
     import pickle
 
     from vdo_slam_tpu_torch.pipeline import System
-    from vdo_slam_tpu_torch.pipeline.draws import UniformDraws, frame_uniforms
     from vdo_slam_tpu_torch.utils.checkpoint import (save_checkpoint,
                                                      tracker_from_numpy)
 
@@ -448,12 +448,9 @@ def _one_frame_on_both(cfg, ds, fid: int, tmp_path):
     save_checkpoint(sysm.tracker, tmp_path / "ck.pkl")
     with open(tmp_path / "ck.pkl", "rb") as fh:
         payload = pickle.load(fh)
-    u = frame_uniforms(cfg, fid, torch.Generator())
     reps = {}
     for dev in ("cpu", "cuda"):
         tr = tracker_from_numpy(payload, cfg, device=dev)
-        draws = UniformDraws({k: v.to(dev) for k, v in u.items()})
-        tr._frame_draws = lambda d=draws: d
         reps[dev] = tr.grab_frame(ds[fid])
     return reps
 
@@ -848,6 +845,93 @@ def test_window_tier_graph_matches_eager(tracked_map, monkeypatch, tier):
     assert graphs.records() and graphs.records()[0]["capture_s"] > 0
     assert abs(float(cg) - float(ce)) <= 1e-5 * float(ce)
     np.testing.assert_allclose(pg, pe, atol=1e-4)
+
+
+def test_full_ba_graph_matches_eager(tracked_map):
+    """full_ba_inplace from its graphs (warmup_full_ba on the zero-weight
+    graph of small full_* caps, then the solve, which replays) against the
+    eager full_ba_inplace on the card: the cost within 1e-5 relative
+    (chip_smoke's GRAPH_COST_RTOL), every refined pose entry within 1e-5,
+    and the captures the warm-up made, which the solve replays, making no
+    other."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
+                                                   full_ba_inplace,
+                                                   warmup_full_ba)
+
+    m, cfg = tracked_map
+    cfg = cfg.replace(backend=dataclasses.replace(
+        cfg.backend, full_obs_cap=16384, full_ter_cap=8192,
+        full_point_cap=16384, full_motion_cap=64, full_smo_cap=64))
+    graphs = FullBAGraphs("cuda")
+    warmup_full_ba(cfg, m.num_frames, graphs)
+    keys = set(graphs._calls)
+    me, mg = copy.deepcopy(m), copy.deepcopy(m)
+    eager = full_ba_inplace(me, cfg, device="cuda")
+    graphed = full_ba_inplace(mg, cfg, device="cuda", graphs=graphs)
+    assert set(graphs._calls) == keys and len(graphs.records()) == len(keys)
+    assert all(r["capture_s"] > 0 for r in graphs.records())
+    assert graphed["cost0"] == pytest.approx(eager["cost0"], rel=1e-5)
+    assert abs(graphed["cost"] - eager["cost"]) <= 1e-5 * eager["cost"]
+    assert graphed["cost"] < graphed["cost0"]
+    for a, b in zip(mg.cam_pose_rf, me.cam_pose_rf, strict=True):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+    for ra, rb in zip(mg.rigid_motion_rf, me.rigid_motion_rf, strict=True):
+        for a, b in zip(ra, rb, strict=True):
+            np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+HOST_STAGES = ("_prepare", "_mask_prop", "_inherit", "_camera",
+               "_scene_flow", "_objects", "_renew_static", "_renew_dynamic")
+
+
+def test_tracker_stage_graphs_replay_equal_eager_calls():
+    """The host Tracker (System mode "reference") on the card over 6
+    frames, each stage captured at its second call and replayed after;
+    then each stage's function called eagerly on the inputs its last
+    replay read: integer and boolean outputs equal, float outputs within
+    1e-5.  Against the same run with the stage functions called directly,
+    every frame's pose within the card-vs-CPU bounds and the same
+    objects; KERNEL.launches up by one per frame either way."""
+    from vdo_slam_tpu_torch.pipeline import System
+    from vdo_slam_tpu_torch.utils.cuda_graph import tree_flatten
+
+    scene = make_scene(num_frames=7, width=320, height=240, num_objects=2,
+                       seed=3)
+    cfg = _small_cfg()
+    ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
+    runs = {}
+    for name in ("graphed", "direct"):
+        sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                      device="cuda")
+        if name == "direct":
+            for st in HOST_STAGES:
+                setattr(sysm.tracker, st, getattr(sysm.tracker, st).fn)
+        before = KERNEL.launches
+        reps = sysm.run_sequence(ds)
+        runs[name] = (sysm, reps, KERNEL.launches - before)
+    tr = runs["graphed"][0].tracker
+    assert runs["graphed"][2] == runs["direct"][2] == len(ds)
+    assert len(tr.graph_records()) == len(HOST_STAGES)
+    assert tr._prepare.call.record["kernel_launches_per_replay"] == {
+        "FastScoreKernel": 1}
+    for name in HOST_STAGES:
+        stage = getattr(tr, name)
+        eager = tree_flatten(stage.fn(*stage.inputs.tree, **stage._consts))[0]
+        replayed = tree_flatten(stage.call.out)[0]
+        assert len(eager) == len(replayed), name
+        for e, r in zip(eager, replayed):
+            if e.is_floating_point():
+                torch.testing.assert_close(r, e, rtol=1e-5, atol=1e-5)
+            else:
+                assert torch.equal(r, e), name
+    for rg, rd in zip(runs["graphed"][1], runs["direct"][1], strict=True):
+        assert _pose_gap_ok(rd["T_cw"], rg["T_cw"])
+        assert ([(o["model_label"], o["sem_label"], o["status"])
+                 for o in rg["objects"]]
+                == [(o["model_label"], o["sem_label"], o["status"])
+                    for o in rd["objects"]])
 
 
 @pytest.mark.parametrize("name,make", [

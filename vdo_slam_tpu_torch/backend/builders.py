@@ -2,10 +2,10 @@
 graph assembly, the same shapes and the same arrays (tests/
 test_torch_backend.py holds them equal at atol=0).  Graph and Variables are
 the port's (backend/factor_graph.py), filled with numpy arrays; the solver
-entries upload them to the device in one copy.  `empty_full_graph` is not
-copied: it fed the JAX package's compile warmup, and the eager port
-compiles nothing.  Comments below that speak of compiled executables and
-warmups describe the original, whose fixed shapes they explain.
+entries upload them to the device in one copy.  The fixed shapes that the
+original's compiled executables need are what the port's CUDA graphs need:
+`empty_window_graph` and `empty_full_graph` feed the warm-ups of
+backend/window_ba.py and backend/full_ba.py, which capture the graphs.
 
 Host-side graph assembly from the MapState archive.
 
@@ -488,3 +488,36 @@ def build_full_graph(m: MapState, cfg: VDOConfig):
     meta.stat_obs = (s_frm.astype(np.int64), s_fea.astype(np.int64),
                      s_pid.astype(np.int64))
     return graph, variables, meta
+
+
+def empty_full_graph(cfg: VDOConfig, n_frames: int):
+    """A zero-weight full graph with EXACTLY the shapes build_full_graph
+    produces for an n_frames archive when the full_* caps are configured.
+
+    Used to warm and capture the full-BA graphs before the real solve
+    (full_ba.warmup_full_ba), which then replays them."""
+    be = cfg.backend
+    for cap in (be.full_obs_cap, be.full_ter_cap, be.full_point_cap,
+                be.full_motion_cap, be.full_smo_cap):
+        if cap is None:
+            raise ValueError("empty_full_graph requires all full_* caps set "
+                             "(shapes are data-dependent otherwise)")
+    parts = _empty_parts()
+    for f in range(1, n_frames):
+        parts["odo_a"].append(f - 1)
+        parts["odo_b"].append(f)
+        parts["odo_meas_inv"].append(np.eye(4, dtype=np.float32))
+        parts["odo_w"].append(1.0 / be.full_sigma2_cam)
+    parts["pri_idx"].append(0)
+    parts["pri_meas_inv"].append(np.eye(4, dtype=np.float32))
+    parts["pri_w"].append(be.prior_information)
+    sizes = {"E": be.full_obs_cap, "Et": be.full_ter_cap,
+             "Es": be.full_smo_cap}
+    graph = _pad_graph(parts, n_frames, be.full_motion_cap, 4096, sizes=sizes)
+    variables = Variables(
+        poses=np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1)),
+        motions=np.tile(np.eye(4, dtype=np.float32),
+                        (be.full_motion_cap, 1, 1)),
+        points=np.zeros((be.full_point_cap, 3), np.float32),
+    )
+    return graph, variables

@@ -51,6 +51,7 @@ from torch.func import jacfwd, vmap
 
 from ..devices import device_list
 from ..geometry import se3
+from ..utils.cuda_graph import copy_out
 
 Tensor = torch.Tensor
 # torch's forward-AD levels are numbered process-wide, not per thread: two
@@ -158,6 +159,21 @@ def upload(g, v, device="cuda") -> tuple[Graph, Variables]:
                  **{"v_" + n: np.asarray(getattr(v, n)) for n in vn}}, device)
     return (Graph(**{n: t[n] for n in gn}),
             Variables(**{n: t["v_" + n] for n in vn}))
+
+
+def device_like(g, v) -> tuple[Graph, Variables]:
+    """CPU tensors of the dtypes and shapes `upload` gives a builder's
+    (graph, variables): integer arrays as int64, the rest float32."""
+    def like(a):
+        a = np.asarray(a)
+        dt = (torch.int64 if np.issubdtype(a.dtype, np.integer)
+              else torch.float32)
+        return torch.empty(a.shape, dtype=dt)
+
+    return (Graph(**{f.name: like(getattr(g, f.name))
+                     for f in dataclasses.fields(Graph)}),
+            Variables(*(like(getattr(v, n))
+                        for n in ("poses", "motions", "points"))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -649,7 +665,10 @@ def lm_solve(g: Graph, v0: Variables, p: LMParams, lam0=None):
 def _chunked(solve, v0: Variables, p: LMParams, chunk: int, callback):
     """p.iters iterations of solve(v, p_chunk, lam) -> (v, info) in chunks
     of `chunk`, damping carried across, with the gain test at each chunk
-    boundary (lm_solve_chunked)."""
+    boundary (lm_solve_chunked).  solve may return static outputs, which
+    its next call overwrites (backend/full_ba.py:FullBAGraphs): v and lam
+    only feed that call, and the first chunk's cost0 and stats0 are copied
+    out; the last chunk's outputs are the caller's to fetch."""
     v = v0
     lam = _lam(p, v0.points)
     info = {}
@@ -662,7 +681,9 @@ def _chunked(solve, v0: Variables, p: LMParams, chunk: int, callback):
         lam = info["lam"]
         total += n_it
         if cost0 is None:
-            cost0, stats0 = info["cost0"], info["stats0"]
+            # copied out: where solve replays a graph, the next chunk's
+            # replay overwrites its outputs
+            cost0, stats0 = copy_out((info["cost0"], info["stats0"]))
         stop = False
         if p.gain_eps > 0:
             c0, c1 = torch.stack([info["cost0"], info["cost"]]).tolist()

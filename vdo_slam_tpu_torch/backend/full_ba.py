@@ -14,22 +14,31 @@ With more than one device the edges are sharded over all of them
 (factor_graph.lm_solve_sharded_chunked), as the original shards them over
 `jax.devices()`; the devices are a list driven from this one process (the
 factor_graph module says why).  With one device the plain chunked solve
-runs.  Not ported: `warmup_full_ba`, which compiled the XLA program ahead
-of time.
+runs, from CUDA graphs where the caller passes a `FullBAGraphs`: one
+graph of `lm_solve` per input shape and chunk length, as the original
+compiles one executable per shape (`warmup_full_ba` warms and captures
+them on a zero-weight graph of the configured caps, as the original
+compiles and first-executes its program).  The edge-sharded solve stays
+eager.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 
 import numpy as np
+import torch
 
 from ..config import VDOConfig
 from ..devices import device_list
 from ..pipeline.map_state import MapState
-from .builders import build_full_graph
-from .factor_graph import (LMParams, Variables, fetch, lm_solve_chunked,
+from ..utils.cuda_graph import GraphedCall, StaticTree, tree_flatten
+from .builders import build_full_graph, empty_full_graph
+from .factor_graph import (LMParams, Variables, _chunked, _lam, device_like,
+                           fetch, lm_solve, lm_solve_chunked,
                            lm_solve_sharded_chunked, upload)
 
 # LM iterations per chunk by default (BackendConfig.full_ba_chunk): the
@@ -71,35 +80,126 @@ def scaled_lm_params(cfg: VDOConfig, n_obs: int,
     return dataclasses.replace(p, cg_iters=_scaled_cg(p.cg_iters, n_obs))
 
 
+class FullBAGraphs:
+    """The full BA's graphs on one device: one `lm_solve` graph per input
+    shape and chunk LMParams (the full chunk and the tail chunk of a
+    solve), made at a key's first chunk (which runs eagerly, as the
+    warm-up) and captured at its second.  The graphs of one shape read one
+    set of static inputs: the edge arrays, loaded once per solve, and the
+    variables and the damping, loaded for each chunk (the last chunk's
+    outputs, which the next replay overwrites).  A solve holds the
+    object's lock from its upload to its fetch."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._inputs: dict = {}
+        self._calls: dict = {}
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def solver(self, graph, v0, p: LMParams):
+        """Load a builder's (graph, variables) into the static inputs of
+        their shape, the damping set to p.lambda_init (one transfer, on
+        torch's current stream); yields (v0, solve): v0 the variables'
+        static buffers, and solve(v, p_chunk, lam) -> (v, info) for
+        factor_graph._chunked, lm_solve from the graph of p_chunk, whose
+        outputs are valid until its next call or the block's end."""
+        g_like, v_like = device_like(graph, v0)
+        key = tuple((x.dtype, tuple(x.shape))
+                    for x in tree_flatten((g_like, v_like))[0])
+        with self._lock:
+            if key not in self._inputs:
+                self._inputs[key] = (
+                    StaticTree(g_like, self.device),
+                    StaticTree((v_like, torch.empty(())), self.device))
+            edges, state = self._inputs[key]
+            edges.load_host(graph)
+            state.load_host((v0, np.full((), p.lambda_init, np.float32)))
+
+            def solve(v, pc: LMParams, lam):
+                state.load((v, lam))
+                if (key, pc) not in self._calls:
+                    self._calls[key, pc] = GraphedCall(
+                        lambda: lm_solve(edges.tree, state.tree[0], pc,
+                                         lam0=state.tree[1]),
+                        self.device,
+                        f"full BA F={v_like.poses.shape[0]} "
+                        f"P={v_like.points.shape[0]} "
+                        f"E={g_like.obs_w.shape[0]} iters={pc.iters}")
+                return self._calls[key, pc]()
+
+            yield state.tree[0], solve
+
+    def records(self) -> list[dict]:
+        """What each capture cost (GraphedCall.record), in capture order."""
+        return [c.record for c in self._calls.values()
+                if c.record is not None]
+
+
+def _chunk_lengths(p: LMParams, chunk: int) -> list[int]:
+    """The distinct chunk lengths of a p.iters solve in chunks of `chunk`:
+    the full chunk, and the tail where p.iters is not a multiple."""
+    return [chunk] + ([p.iters % chunk] if p.iters % chunk else [])
+
+
+def warmup_full_ba(cfg: VDOConfig, n_frames: int,
+                   graphs: FullBAGraphs) -> None:
+    """Warm and capture the full-BA graphs on a zero-weight graph with the
+    exact shapes full_ba_inplace will use for an n_frames archive
+    (vdo_slam_tpu/backend/full_ba.py:73-88 compiles and first-executes the
+    program): each chunk length of the solve is solved twice, eagerly and
+    then from its new graph, with the LMParams of the real solve (the CG
+    budget scaled by the padded observation count), so that the real solve
+    replays them.  Raises ValueError if the full_* caps are unset."""
+    g, v = empty_full_graph(cfg, n_frames)
+    p = scaled_lm_params(cfg, g.obs_w.shape[0])
+    with graphs.solver(g, v, p) as (v0, solve):
+        for n in _chunk_lengths(p, min(cfg.backend.full_ba_chunk, p.iters)):
+            for _ in range(2):
+                _, info = solve(v0, dataclasses.replace(p, iters=n),
+                                _lam(p, v0.points))
+                fetch(info["cost"])     # waits for the solve
+
+
 def full_ba_inplace(m: MapState, cfg: VDOConfig, iters: int | None = None,
-                    device="cuda", devices=None) -> dict:
+                    device="cuda", devices=None,
+                    graphs: FullBAGraphs | None = None) -> dict:
     """The full-batch solve of the map `m`, written back in place; returns
     its report.  `devices` (devices.py:device_list; None takes every
     visible card when `device` is CUDA): more than one shards the edges
-    over them, one runs the single-device solve on it."""
+    over them (eagerly), one runs the single-device solve on it, each
+    chunk from `graphs` where given."""
     devices = device_list(devices, device)
     t0 = time.perf_counter()
     graph_host, v0, meta = build_full_graph(m, cfg)
     p = scaled_lm_params(cfg, graph_host.obs_w.shape[0], iters)
-    # one copy for all chunks; the sharded solve pads and shards it once
-    graph, v0 = upload(graph_host, v0, devices[0])
     chunk = min(cfg.backend.full_ba_chunk, p.iters)
-    t_build = time.perf_counter() - t0
-    t0 = time.perf_counter()
     chunk_times = []
 
     def mark(i, _):
         chunk_times.append(time.perf_counter())
 
-    if len(devices) > 1:
-        v, info = lm_solve_sharded_chunked(graph, v0, p, devices,
-                                           chunk=chunk, callback=mark)
-    else:
-        v, info = lm_solve_chunked(graph, v0, p, chunk=chunk, callback=mark)
-    # ONE device-to-host copy
-    poses, motions, points, cost0, cost, stats0, stats = fetch(
-        (v.poses, v.motions, v.points, info["cost0"], info["cost"],
-         info["stats0"], info["stats"]))
+    with contextlib.ExitStack() as held:
+        # one copy for all chunks; the sharded solve pads and shards it
+        # once; the graphs hold their lock until the fetch
+        if graphs is not None and len(devices) == 1:
+            v0, solve = held.enter_context(graphs.solver(graph_host, v0, p))
+        else:
+            graph, v0 = upload(graph_host, v0, devices[0])
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if len(devices) > 1:
+            v, info = lm_solve_sharded_chunked(graph, v0, p, devices,
+                                               chunk=chunk, callback=mark)
+        elif graphs is not None:
+            v, info = _chunked(solve, v0, p, chunk, mark)
+        else:
+            v, info = lm_solve_chunked(graph, v0, p, chunk=chunk,
+                                       callback=mark)
+        # ONE device-to-host copy
+        poses, motions, points, cost0, cost, stats0, stats = fetch(
+            (v.poses, v.motions, v.points, info["cost0"], info["cost"],
+             info["stats0"], info["stats"]))
     t_solve = time.perf_counter() - t0
     t0 = time.perf_counter()
 

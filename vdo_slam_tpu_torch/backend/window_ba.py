@@ -21,7 +21,6 @@ solver "lm" (matrix-free PCG) stays eager.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import threading
 import time
 
@@ -33,7 +32,7 @@ from ..pipeline.map_state import MapState
 from ..utils.cuda_graph import GraphedCall, StaticTree, tree_flatten
 from .builders import (WINDOW_TIERS, _np_inv, build_window_graph,
                        empty_window_graph)
-from .factor_graph import (Graph, LMParams, Variables, fetch, lm_solve,
+from .factor_graph import (LMParams, device_like, fetch, lm_solve,
                            lm_solve_schur, upload)
 
 
@@ -48,21 +47,6 @@ def _lm_params(cfg: VDOConfig, iters: int | None = None) -> LMParams:
         pose_huber_delta=be.pose_huber_delta,
         robust=be.robust_kernel,
     )
-
-
-def _device_like(graph, v0) -> tuple[Graph, Variables]:
-    """CPU tensors of the dtypes and shapes `upload` gives a builder's
-    (graph, variables): integer arrays as int64, the rest float32."""
-    def like(a):
-        a = np.asarray(a)
-        dt = (torch.int64 if np.issubdtype(a.dtype, np.integer)
-              else torch.float32)
-        return torch.empty(a.shape, dtype=dt)
-
-    return (Graph(**{f.name: like(getattr(graph, f.name))
-                     for f in dataclasses.fields(Graph)}),
-            Variables(*(like(getattr(v0, n))
-                        for n in ("poses", "motions", "points"))))
 
 
 class WindowGraphs:
@@ -81,7 +65,7 @@ class WindowGraphs:
         self._lock = threading.Lock()
 
     def _entry(self, graph, v0, p: LMParams):
-        like = _device_like(graph, v0)
+        like = device_like(graph, v0)
         key = (tuple((x.dtype, tuple(x.shape))
                      for x in tree_flatten(like)[0]), p)
         with self._lock:

@@ -32,9 +32,12 @@ Against bench.py (deliberate):
 - The window solve's warmup is the System's own: on a card it warms and
   captures a CUDA graph of each shape tier when it is made
   (backend/window_ba.py:warmup_window_ba), as bench.py's
-  warmup_window_ba compiles them.  The full BA stays eager: its warmup is
-  one full BA on a copy of the map after the warm frames (`_warm_full_ba`),
-  since a device's first solve pays one-time costs.
+  warmup_window_ba compiles them.  The full BA's graphs are warmed and
+  captured after the warm frames, on the calling thread, by
+  `warmup_full_ba` on the zero-weight graph of the full_* caps, where
+  bench.py compiles its program on a background thread during the warm
+  frames: the port's threads share the interpreter lock, so a warm-up on
+  a thread would slow the warm frames instead of overlapping them.
 - A failing stage probe fails the run (bench.py logs it and goes on);
   VDO_BENCH_NO_PROBE=1 still skips it.
 - --streams stages the next frame on one uploader thread as bench.py
@@ -310,27 +313,10 @@ def on_callers_streams(devices, fn):
     return run
 
 
-def _warm_full_ba(trackers, cfg) -> float:
-    """The counterpart of bench.py's full-BA warmup (bench.py:118,
-    305-325): for each fused tracker, one full BA on a copy of its map
-    after the warm frames, thrown away, where run_sequence runs it (this
-    thread).  The solver's one-time costs on a device (library handles,
-    the first launch of each kernel, the allocator's growth) then fall
-    before the timed region.  Returns the seconds."""
-    import copy
-
-    from .backend.full_ba import full_ba_inplace
-
-    t0 = time.perf_counter()
-    for t in trackers:
-        full_ba_inplace(copy.deepcopy(t.map), cfg, device=t.device)
-    return time.perf_counter() - t0
-
-
-def _capture_seconds(window_graphs) -> float:
-    """Seconds the window solves' warm-ups and captures took (when the
-    System was made)."""
-    return sum(r["warm_s"] + r["capture_s"] for wg in window_graphs
+def _capture_seconds(graphs) -> float:
+    """Seconds the warm-ups and captures of `graphs` (WindowGraphs or
+    FullBAGraphs objects) took."""
+    return sum(r["warm_s"] + r["capture_s"] for wg in graphs
                for r in wg.records())
 
 
@@ -420,7 +406,8 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     BA).  The stage probe runs after the timed region.  Returns the JSON
     record and the system."""
     from .backend.factor_graph import format_edge_stats
-    from .backend.full_ba import full_ba_inplace
+    from .backend.full_ba import (FullBAGraphs, full_ba_inplace,
+                                  warmup_full_ba)
     from .parallel.multistream import PROBE_SPANS
     from .pipeline import System
 
@@ -447,7 +434,12 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     log(f"warmup {n_warm} frames: {time.perf_counter() - t0:.1f}s")
     log(f"window-BA graphs warmed and captured at construction: "
         f"{_capture_seconds([sysm.window_graphs]):.1f}s")
-    log(f"full-BA warmup: {_warm_full_ba([sysm.tracker], cfg):.1f}s")
+    full_graphs = FullBAGraphs(sysm.tracker.device)
+    t0 = time.perf_counter()
+    warmup_full_ba(cfg, len(pds), full_graphs)
+    log(f"full-BA graphs warmed and captured: "
+        f"{time.perf_counter() - t0:.1f}s "
+        f"({_capture_seconds([full_graphs]):.1f}s of warm-up and capture)")
 
     n_timed = len(pds) - n_warm
     n_solves = len(sysm.map.lba_times)
@@ -474,10 +466,12 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
 
     # end-of-run full-batch refinement (Tracking.cc:1190-1208)
     t1 = time.perf_counter()
-    ba_info = full_ba_inplace(sysm.map, cfg, device=device)
+    ba_info = full_ba_inplace(sysm.map, cfg, device=device,
+                              graphs=full_graphs)
     ba_elapsed = time.perf_counter() - t1
     log(f"full-batch BA: {ba_elapsed:.1f}s  (build "
-        f"{ba_info['t_build_s']:.3f}s solve {ba_info['t_solve_s']:.3f}s wb "
+        f"{ba_info['t_build_s']:.3f}s, solve from its graphs "
+        f"{ba_info['t_solve_s']:.3f}s, wb "
         f"{ba_info['t_writeback_s']:.3f}s, {ba_info['iters_run']} LM iters)"
         f"  cost {ba_info['cost0']:.4e} -> {ba_info['cost']:.4e}  (static "
         f"{ba_info['n_static']}, dyn {ba_info['n_dyn']}, motions "
@@ -511,7 +505,8 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     log(f"stage timing (ms): {sysm.timing()}")
     rec = _record(metric_name(hard=hard), fps)
     return {"record": rec, "system": sysm, "full_ba": ba_info,
-            "frames": len(pds), "window_solve_ms": solve_ms}
+            "full_ba_graphs": full_graphs.records(), "frames": len(pds),
+            "window_solve_ms": solve_ms}
 
 
 def parse_argv(argv) -> tuple[str, dict]:

@@ -19,7 +19,13 @@ enable_global_ba, run_sequence ends with the full-batch solve, after the
 window solves, and keeps its report in `full_ba_report`.  On a card the
 window solves run from CUDA graphs (backend/window_ba.py:WindowGraphs),
 one per shape tier, warmed and captured when the System is made
-(`warmup_window_ba`), before tracking starts.
+(`warmup_window_ba`), before tracking starts.  The full BA runs from the
+System's `full_graphs` (backend/full_ba.py:FullBAGraphs), which the System
+does not warm, as the JAX package's System does not: without the full_*
+caps the full graph's shapes vary from run to run, so a run's one full BA
+is its graphs' warm-up (a key's second chunk captures, later ones
+replay); a caller that knows the caps warms them first
+(`warmup_full_ba`, as the bench does).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ class System:
         if not isinstance(cfg, VDOConfig):
             cfg = load_settings(cfg)
         # imported here: parallel/ and backend/ import pipeline/
+        from ..backend.full_ba import FullBAGraphs
         from ..backend.window_ba import (WindowGraphs, local_ba_inplace,
                                          warmup_window_ba)
         from .fused import FusedTracker
@@ -71,6 +78,8 @@ class System:
         self.enable_global_ba = enable_global_ba
         self.full_ba_report: dict | None = None
         self.window_graphs: WindowGraphs | None = None
+        self.full_graphs = (FullBAGraphs(self.tracker.device)
+                            if enable_global_ba else None)
         if enable_local_ba:
             dev = self.tracker.device
             graphs = self.window_graphs = WindowGraphs(dev)
@@ -139,8 +148,9 @@ class System:
         if self.enable_global_ba and self.map.num_frames > 2:
             from ..backend.full_ba import full_ba_inplace
 
-            self.full_ba_report = full_ba_inplace(self.map, self.cfg,
-                                                  device=self.tracker.device)
+            self.full_ba_report = full_ba_inplace(
+                self.map, self.cfg, device=self.tracker.device,
+                graphs=self.full_graphs)
 
     def _drive_reference(self, dataset, n: int, verbose: bool) -> list[dict]:
         """The host Tracker's loop (system.py:193-201): one frame per

@@ -20,7 +20,20 @@ Against the JAX package:
   * a frame's random draws come from `_frame_draws()`, the per-frame draws
     of pipeline/draws.py (a function of cfg.seed and the frame index, as
     in the fused tracker), where the JAX tracker splits one key chain; a
-    test overrides `_frame_draws` to replay that chain.
+    test overrides `_frame_draws` to replay that chain;
+  * each stage that runs every tracked frame (prepare, mask_prop,
+    inherit, camera, scene_flow, objects, renew_static, renew_dynamic) is
+    a `GraphedStage` (utils/cuda_graph.py), where the JAX package jits each
+    stage: on a card its first call runs eagerly, its second captures a
+    CUDA graph, and later calls copy the stage's inputs into its static
+    buffers and replay it.  Its outputs are static and the stage's next
+    call overwrites them, so what outlives a frame, the frame state
+    (FrameState and the last seg and flow maps), is copied at the end of
+    the frame into buffers of the tracker's own (`state` reads a copy,
+    assigning it copies in).  The draws go into static buffers once per
+    frame (one transfer) and every stage reads them through one
+    UniformDraws; on a card other FrameDraws raise (`check_stage_draws`).
+    init_banks runs once per run and stays eager.
 
 State machine (Tracking.h:119-123): NO_IMAGES_YET -> NOT_INITIALIZED -> OK.
 """
@@ -34,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import KITTI, OMD, VDOConfig
+from ..utils.cuda_graph import GraphedStage, StaticTree
 from . import draws as draws_mod
 from . import stages
 from .map_state import MapState
@@ -94,6 +108,22 @@ def upload(x, dtype, device) -> Tensor:
     return t
 
 
+def check_stage_draws(draws: draws_mod.FrameDraws, device) -> None:
+    """Raise ValueError where the stage graphs could not read `draws`: on a
+    card only a UniformDraws can be copied into the graphs' static draws
+    buffers; another FrameDraws makes its tensors on demand, which a
+    capture would bake in or refuse.  On the CPU any FrameDraws runs."""
+    if (torch.device(device).type == "cuda"
+            and not isinstance(draws, draws_mod.UniformDraws)):
+        raise ValueError(f"the host Tracker's stage graphs read a frame's "
+                         f"draws from static buffers: on a card they take "
+                         f"a UniformDraws, not a {type(draws).__name__}")
+
+
+# the frame state kept between frames: the leaves of `_frame`
+_FRAME_KEYS = ("state", "last_seg", "last_flow")
+
+
 class ObjectTrack:
     """Per-slot metadata carried across frames (host side)."""
 
@@ -116,7 +146,12 @@ class Tracker:
                 "Tracker(device='cuda'): no CUDA device; pass device='cpu' "
                 "to run on the CPU")
         self.map = game_map if game_map is not None else MapState()
-        self.state: FrameState | None = None
+        # the frame state (FrameState, last seg and flow maps) between
+        # frames, made like the first one; None before frame 0
+        self._frame: StaticTree | None = None
+        # the frame's draws as every stage graph reads them
+        self._draws: StaticTree | None = None
+        self._draws_view: draws_mod.UniformDraws | None = None
         self.frame_id = 0
         self.max_id = 1                    # global object-track id counter
         self.origin_inv: np.ndarray | None = None
@@ -125,39 +160,111 @@ class Tracker:
         self._last_sem: np.ndarray | None = None
         self._last_tracks: list[ObjectTrack] = []
         self._last_obj_rows: np.ndarray = np.zeros((0, 10), np.float32)
-        self._last_seg: Tensor | None = None
-        self._last_flow: Tensor | None = None
         # host mirror of state.T_cw_gt (the GT pose this tracker uploaded)
         self._T_cw_gt_host = np.eye(4, dtype=np.float32)
         dev = self.device
-        self._prepare = stages.make_prepare(cfg, dev)
-        self._mask_prop = stages.make_mask_prop(cfg, dev)
-        self._inherit = stages.make_inherit(cfg, dev)
-        self._camera = stages.make_camera_stage(cfg, dev)
-        self._scene_flow = stages.make_scene_flow(cfg, dev)
-        self._objects = stages.make_objects_stage(cfg, dev)
-        self._renew_static, self._renew_dynamic = stages.make_renew_stage(
-            cfg, dev)
+        renew_static, renew_dynamic = stages.make_renew_stage(cfg, dev)
+        for name, fn in (("prepare", stages.make_prepare(cfg, dev)),
+                         ("mask_prop", stages.make_mask_prop(cfg, dev)),
+                         ("inherit", stages.make_inherit(cfg, dev)),
+                         ("camera", stages.make_camera_stage(cfg, dev)),
+                         ("scene_flow", stages.make_scene_flow(cfg, dev)),
+                         ("objects", stages.make_objects_stage(cfg, dev)),
+                         ("renew_static", renew_static),
+                         ("renew_dynamic", renew_dynamic)):
+            setattr(self, "_" + name, GraphedStage(fn, dev, name))
         self._init_banks = stages.make_init_stage(cfg, dev)
         self.local_ba_hook = None          # set by System (backend trigger)
+
+    # -- the state kept between frames --------------------------------------
+
+    @property
+    def state(self) -> FrameState | None:
+        """A copy of the frame state: later frames leave it alone."""
+        return None if self._frame is None else self._frame.snapshot()[
+            "state"]
+
+    @state.setter
+    def state(self, state: FrameState | None) -> None:
+        """Copy `state` into the frame-state buffers (made like it at the
+        first assignment; the last seg and flow maps are set apart)."""
+        if state is None:
+            self._frame = None
+        else:
+            self._keep(state=state)
+
+    def _leaf(self, name: str) -> Tensor | None:
+        return (None if self._frame is None
+                else self._frame.tree[name].clone())
+
+    def _set_leaf(self, name: str, value) -> None:
+        if value is None and self._frame is None:
+            return
+        if self._frame is None:
+            raise ValueError(f"{name}: assign the tracker's state first")
+        self._keep(**{name: value})
+
+    _last_seg = property(lambda self: self._leaf("last_seg"),
+                         lambda self, v: self._set_leaf("last_seg", v),
+                         doc="A copy of the last frame's seg map.")
+    _last_flow = property(lambda self: self._leaf("last_flow"),
+                          lambda self, v: self._set_leaf("last_flow", v),
+                          doc="A copy of the last frame's flow map.")
+
+    def _keep(self, **values) -> None:
+        """Copy `values` (of _FRAME_KEYS) into the frame-state buffers, the
+        others kept; the first call lays the buffers out, the last seg and
+        flow maps like the state's."""
+        if self._frame is None:
+            st = values["state"]
+            self._frame = StaticTree({"state": st, "last_seg": st.seg,
+                                      "last_flow": st.flow_map}, self.device)
+        t = self._frame.tree
+        self._frame.load({k: values.get(k, t[k]) for k in _FRAME_KEYS})
 
     # -- helpers ----------------------------------------------------------
 
     def _frame_draws(self) -> draws_mod.FrameDraws:
-        """The random draws of frame `self.frame_id`, taken once per frame
-        by every stage of it."""
+        """The random draws of frame `self.frame_id`, on the host, taken
+        once per frame by every stage of it."""
         return draws_mod.UniformDraws(draws_mod.frame_uniforms(
-            self.cfg, self.frame_id, self._generator, self.device))
+            self.cfg, self.frame_id, self._generator))
+
+    def _stage_draws(self) -> draws_mod.FrameDraws:
+        """This frame's draws (`_frame_draws`) as the stage graphs read
+        them: a UniformDraws's tensors copied into the draws buffers (one
+        transfer from the host), handed to every stage through the same
+        UniformDraws; on the CPU another FrameDraws passes through."""
+        draws = self._frame_draws()
+        check_stage_draws(draws, self.device)
+        if not isinstance(draws, draws_mod.UniformDraws):
+            return draws
+        if self._draws is None:
+            self._draws = StaticTree(draws.u, self.device)
+            self._draws_view = draws_mod.UniformDraws(self._draws.tree)
+        self._draws.load_host(draws.u)
+        return self._draws_view
+
+    def graph_records(self) -> list[dict]:
+        """What each stage graph's capture cost (GraphedCall.record), in
+        stage order, for the stages captured so far."""
+        return [g.call.record for g in (
+            self._prepare, self._mask_prop, self._inherit, self._camera,
+            self._scene_flow, self._objects, self._renew_static,
+            self._renew_dynamic)
+            if isinstance(g, GraphedStage) and g.call.record is not None]
 
     def _put(self, x, dtype) -> Tensor:
         return upload(x, dtype, self.device)
 
     def _fetch(self, *tensors: Tensor) -> list[np.ndarray]:
-        """The tensors as numpy arrays, in ONE device-to-host copy on a
-        CUDA device: their bytes concatenated, copied to a pinned buffer,
-        one wait, split again.  The values are unchanged."""
+        """The tensors as numpy arrays of their own, in ONE device-to-host
+        copy on a CUDA device: their bytes concatenated, copied to a pinned
+        buffer, one wait, split again.  The values are unchanged; a stage
+        graph's next call, which overwrites its outputs, leaves them
+        alone."""
         if self.device.type != "cuda":
-            return [t.numpy() for t in tensors]
+            return [t.numpy().copy() for t in tensors]
         flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
                           for t in tensors])
         host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
@@ -224,13 +331,14 @@ class Tracker:
 
     def _initialize(self, fd) -> dict:
         rgb, depth_raw, flow, seg = self._upload_frame(fd)
-        prep = self._prepare(rgb, depth_raw, flow, seg, self._frame_draws())
+        prep = self._prepare(rgb, depth_raw, flow, seg,
+                             draws=self._stage_draws())
         stat, dyn = self._init_banks(prep["stat_cand"], prep["obj_cand"])
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
-        self.state = FrameState(
+        self._keep(state=FrameState(
             static=stat, dynamic=dyn, T_cw=eye, T_cw_gt=eye, velocity=eye,
             seg=seg, flow_map=flow, depth_map=prep["depth"],
-        )
+        ), last_seg=seg, last_flow=flow)
         self._T_cw_gt_host = np.eye(4, dtype=np.float32)
         self._gt_pose(fd.pose_gt_raw)  # records origin
         (s_xy, s_d, s_3d, s_v, d_xy, d_d, d_3d, d_v, d_ol,
@@ -239,8 +347,6 @@ class Tracker:
                              dyn.obj_label, dyn.sem_label)
         self._last_sem = d_sl
         self._last_obj_rows = fd.obj_gt_rows
-        self._last_seg = seg
-        self._last_flow = flow
 
         # archive frame 0 (Tracking::Initialization, Tracking.cc:1215-1276)
         m = self.map
@@ -266,9 +372,11 @@ class Tracker:
         cfg = self.cfg
         tr = cfg.tracking
         Kobj = cfg.shapes.max_objects
-        last = self.state
+        # the frame-state buffers, which only the end of this frame writes
+        kept = self._frame.tree
+        last = kept["state"]
         timings = np.zeros(5, np.float32)
-        draws = self._frame_draws()
+        draws = self._stage_draws()
 
         # ---- (0) mask propagation (UpdateMask) ---------------------------
         t0 = time.perf_counter()
@@ -277,10 +385,10 @@ class Tracker:
         table = np.zeros(cfg.shapes.max_sem_labels, np.int32)
         table[: min(len(uniq_last), len(table))] = uniq_last[: len(table)]
         seg, _lost = self._mask_prop(
-            seg, self._last_seg, self._last_flow, last.dynamic,
+            seg, kept["last_seg"], kept["last_flow"], last.dynamic,
             self._put(table, np.int32),
         )
-        prep = self._prepare(rgb, depth_raw, flow, seg, draws)
+        prep = self._prepare(rgb, depth_raw, flow, seg, draws=draws)
         depth = prep["depth"]
         stat_cur, dyn_cur = self._inherit(last.static, last.dynamic, depth, seg)
         self._sync()
@@ -292,7 +400,7 @@ class Tracker:
         T_cw_gt = self._put(T_cw_gt_host, np.float32)
         cam_out = self._camera(
             last.static, stat_cur["xy"], stat_cur["depth"], last.T_cw,
-            last.velocity, T_cw_gt, last.T_cw_gt, draws,
+            last.velocity, T_cw_gt, last.T_cw_gt, draws=draws,
         )
         T_cw = cam_out["T_cw"]
         self._sync()
@@ -373,7 +481,7 @@ class Tracker:
             dyn_cur["sem_label"], slot_sem_d,
             self._put(slot_active, bool), self._put(slot_has_mm, bool),
             self._put(slot_H_prev, np.float32),
-            self._put(feat_class > 0, bool), last.T_cw, T_cw, draws,
+            self._put(feat_class > 0, bool), last.T_cw, T_cw, draws=draws,
         )
         (n_init, inlier, H_est, speeds, centroids, members,
          n_inlier) = self._fetch(
@@ -442,7 +550,7 @@ class Tracker:
             obj_out["uv_cur"], self._put(final_class, np.int32), carry_dyn,
             prep["obj_cand"], slot_sem_d, self._put(slot_model, np.int32),
             self._put(slot_active & track_ok, bool),
-            depth, flow, seg, T_cw, draws,
+            depth, flow, seg, T_cw, draws=draws,
         )
         self._sync()
         timings[4] = (time.perf_counter() - t4) * 1e3
@@ -457,17 +565,16 @@ class Tracker:
             cam_out["used_motion_model"])
         self._archive(fd, host, T_cw_gt_host, objects, timings)
 
-        # ---- advance state -------------------------------------------------
-        self.state = FrameState(
+        # ---- advance state: copied out of the stage graphs' outputs,
+        # which their next calls overwrite ---------------------------------
+        self._keep(state=FrameState(
             static=stat_new, dynamic=dyn_new, T_cw=T_cw, T_cw_gt=T_cw_gt,
             velocity=cam_out["velocity"], seg=seg, flow_map=flow,
             depth_map=depth,
-        )
+        ), last_seg=seg, last_flow=flow)
         self._T_cw_gt_host = T_cw_gt_host
         self._last_sem = host[11]
         self._last_obj_rows = fd.obj_gt_rows
-        self._last_seg = seg
-        self._last_flow = flow
 
         # ---- windowed BA trigger (Tracking.cc:1168-1183) -------------------
         f_id = self.frame_id

@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from ..pipeline.state import field, frame_state_from_numpy, to_tensor
-from ..pipeline.tracking import ObjectTrack, Tracker
+# the module, not its names: pipeline/tracking.py imports utils/, which
+# imports this module while tracking.py is still being imported
+from ..pipeline import tracking
 
 
 def _to_numpy(obj):
@@ -39,7 +41,7 @@ def _tensor(x, device):
     return None if x is None else to_tensor(x, device)
 
 
-def _restore(tracker: Tracker, payload: dict) -> Tracker:
+def _restore(tracker: tracking.Tracker, payload: dict) -> tracking.Tracker:
     dev = tracker.device
     tracker.frame_id = int(payload["frame_id"])
     tracker.max_id = int(payload["max_id"])
@@ -57,7 +59,8 @@ def _restore(tracker: Tracker, payload: dict) -> Tracker:
     tracker._last_flow = _tensor(payload["last_flow"], dev)
     tracker._last_tracks = []
     for model, sem, H, active in payload["tracks"]:
-        t = ObjectTrack(int(model), int(sem), np.asarray(H, np.float32))
+        t = tracking.ObjectTrack(int(model), int(sem),
+                                 np.asarray(H, np.float32))
         t.active = bool(active)
         tracker._last_tracks.append(t)
     if payload.get("map") is not None:
@@ -65,15 +68,15 @@ def _restore(tracker: Tracker, payload: dict) -> Tracker:
     return tracker
 
 
-def tracker_from_numpy(payload: dict, cfg, device="cuda") -> Tracker:
+def tracker_from_numpy(payload: dict, cfg, device="cuda") -> tracking.Tracker:
     """A host Tracker on `device` in the state `payload` holds: keys
     frame_id, max_id, origin_inv, state (the FrameState fields by name),
     last_sem, last_obj_rows, last_seg, last_flow, tracks ((model_label,
     sem_label, H, active) each) and, optionally, map."""
-    return _restore(Tracker(cfg, device=device), payload)
+    return _restore(tracking.Tracker(cfg, device=device), payload)
 
 
-def save_checkpoint(tracker: Tracker, path: str | Path) -> None:
+def save_checkpoint(tracker: tracking.Tracker, path: str | Path) -> None:
     payload = {
         "version": 1,
         "kind": "reference",
@@ -96,7 +99,8 @@ def save_checkpoint(tracker: Tracker, path: str | Path) -> None:
         pickle.dump(payload, f)
 
 
-def load_checkpoint(tracker: Tracker, path: str | Path) -> Tracker:
+def load_checkpoint(tracker: tracking.Tracker,
+                    path: str | Path) -> tracking.Tracker:
     """Restore a Tracker in place (its config must match the saved one)."""
     with open(path, "rb") as f:
         payload = pickle.load(f)

@@ -4,9 +4,11 @@ JAX package's compiled step and window-solve warmup.
 The JAX package never runs its hot path op by op.  The tracker's packed
 step (`jax.jit(_step)`, vdo_slam_tpu/pipeline/fused.py:124), its C-frame
 chunk (fused.py:133-144), the S-stream step (`jax.jit(vmap(one))`,
-vdo_slam_tpu/parallel/multisystem.py:55) and the window solve at each
-shape tier (`warmup_window_ba`, vdo_slam_tpu/backend/window_ba.py:43-56)
-are each one executable, compiled once for their fixed shapes and executed
+vdo_slam_tpu/parallel/multisystem.py:55), the window solve at each shape
+tier (`warmup_window_ba`, vdo_slam_tpu/backend/window_ba.py:43-56), the
+full BA's chunk (`warmup_full_ba`, vdo_slam_tpu/backend/full_ba.py:73-88)
+and each stage of the host Tracker (vdo_slam_tpu/pipeline/stages.py) are
+each one executable, compiled once for their fixed shapes and executed
 per call.  On a card the port does the same with a `torch.cuda.CUDAGraph`:
 
   * the first call runs the function eagerly on a side stream: the warm-up,
@@ -22,7 +24,8 @@ The function reads static input buffers (`StaticTree`), which the caller
 fills by copies queued on the stream the graph replays on, and returns
 static outputs, which the next call overwrites: a caller copies out what it
 keeps.  `StepGraph` holds a tracking step's state in static buffers, which
-the captured step updates in place.
+the captured step updates in place; `GraphedStage` copies a call's tensor
+arguments into static buffers of its own (the host Tracker's stages).
 
 On the CPU (device="cpu", as the tests run) the same objects run the
 function eagerly on the same static buffers and copy its outputs into
@@ -101,6 +104,49 @@ def tree_unflatten(spec, leaves):
     return build(spec)
 
 
+def copy_all(dsts: list, srcs: list, non_blocking: bool = False) -> None:
+    """dst.copy_(src) for each pair, in few launches: the pairs whose source
+    has its destination's shape and is contiguous are copied by one
+    `torch._foreach_copy_` per source and destination dtype (one kernel
+    each on a card), the rest one by one; a source that is its destination
+    is skipped."""
+    groups, rest = {}, []
+    for dst, src in zip(dsts, srcs, strict=True):
+        if src.data_ptr() == dst.data_ptr() and src.dtype == dst.dtype \
+                and src.shape == dst.shape and src.stride() == dst.stride():
+            continue
+        if (src.shape == dst.shape and src.is_contiguous()
+                and src.device == dst.device):
+            groups.setdefault((src.dtype, dst.dtype), ([], []))
+            groups[src.dtype, dst.dtype][0].append(dst)
+            groups[src.dtype, dst.dtype][1].append(src)
+        else:
+            rest.append((dst, src))
+    for d, s in groups.values():
+        torch._foreach_copy_(d, s, non_blocking=non_blocking)
+    for dst, src in rest:
+        dst.copy_(src, non_blocking=non_blocking)
+
+
+def copy_out(tree):
+    """A copy of a tree of tensors on one device, made by ONE copy (their
+    bytes concatenated, the widest dtypes first so that every leaf stays
+    aligned): later writes to the tree's tensors, a graph's next replay
+    among them, leave it alone."""
+    leaves, spec = tree_flatten(tree)
+    order = sorted(range(len(leaves)),
+                   key=lambda i: -leaves[i].element_size())
+    flat = torch.cat([leaves[i].reshape(-1).view(torch.uint8)
+                      for i in order])
+    out, o = [None] * len(leaves), 0
+    for i in order:
+        x = leaves[i]
+        n = x.numel() * x.element_size()
+        out[i] = flat[o:o + n].view(x.dtype).reshape(x.shape)
+        o += n
+    return tree_unflatten(spec, out)
+
+
 def _nbytes(dtype, shape) -> int:
     return int(np.prod(shape, dtype=np.int64)) * torch.empty(
         0, dtype=dtype).element_size()
@@ -170,8 +216,8 @@ class StaticTree:
         if len(src) != len(self.leaves):
             raise ValueError(f"a tree of {len(src)} leaves loaded into one "
                              f"of {len(self.leaves)}")
-        for dst, x in zip(self.leaves, src):
-            dst.copy_(torch.as_tensor(x), non_blocking=True)
+        copy_all(self.leaves, [torch.as_tensor(x) for x in src],
+                 non_blocking=True)
 
     def load_host(self, tree) -> None:
         """Copy `tree` (numpy arrays or CPU tensors, each of its leaf's
@@ -207,8 +253,7 @@ class StaticTree:
                 moves.append((dst, x))
             elif x.data_ptr() != dst.data_ptr() or x.stride() != dst.stride():
                 moves.append((dst, x.clone()))
-        for dst, x in moves:
-            dst.copy_(x)
+        copy_all([d for d, _ in moves], [x for _, x in moves])
 
 
 # --------------------------------------------------------------------------
@@ -303,6 +348,51 @@ class GraphedCall:
                 torch.cuda.memory_reserved(self.device) - reserved,
             "kernel_launches_per_replay": {
                 type(k).__name__: n for k, n in self._kernel_launches}}
+
+
+class GraphedStage:
+    """fn(*args, **consts) as a GraphedCall over static input buffers: the
+    general form of a program whose inputs change from call to call.
+
+    The first call lays out a StaticTree like `args` (tensors on `device`,
+    in dataclasses, dicts, lists and tuples); every call copies `args` in
+    (few launches, queued on the current stream) and calls its GraphedCall,
+    so call 1 runs fn eagerly, call 2 captures it and later calls replay it
+    on a card, and the outputs are static, overwritten by the next call.
+    `consts` are passed to fn as they are: on a card the capture bakes
+    them in, so every call must pass the same objects (a draws object over
+    static buffers, say), and another object raises; on the CPU each call
+    passes its own.  Arguments of other dtypes or shapes than the first
+    call's raise."""
+
+    def __init__(self, fn, device, name: str):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.name = name
+        self.inputs: StaticTree | None = None
+        self.call = GraphedCall(self._run, self.device, name)
+        self._consts: dict | None = None
+
+    def _run(self):
+        return self.fn(*self.inputs.tree, **self._consts)
+
+    def __call__(self, *args, **consts):
+        leaves, spec = tree_flatten(args)
+        if self.inputs is None:
+            self.inputs = StaticTree(args, self.device)
+        meta = [(x.dtype, tuple(x.shape)) for x in leaves]
+        if spec != self.inputs.spec or meta != self.inputs.meta:
+            raise ValueError(f"{self.name}: called with other dtypes or "
+                             f"shapes than its first call's")
+        if self.device.type == "cuda" and self._consts is not None and (
+                consts.keys() != self._consts.keys()
+                or any(v is not self._consts[k] for k, v in consts.items())):
+            raise ValueError(f"{self.name}: its graph holds the objects of "
+                             f"its first call ({sorted(self._consts)}); "
+                             f"another was passed")
+        self._consts = consts
+        self.inputs.load(args)
+        return self.call()
 
 
 # --------------------------------------------------------------------------
