@@ -105,7 +105,10 @@ Phases, in order (any failure raises and exits nonzero):
      sharded over n), each held to phase 5's full BA with the bounds of
      the JAX package's own sharded check (__graft_entry__.py:253-256):
      cost within 10 %, refined poses within 1e-3, and its refined metrics
-     gated as phase 5's; t_solve_s of each and kernel launches per LM
+     gated as phase 5's; t_solve_s of each; then for n = 2 and 4 the
+     same solve from FullBAGraphs over [cuda:0] * n (warmup_full_ba
+     first) against the eager sharded solve, the cost within 1e-6
+     relative, with its host launch calls per chunk and kernels per LM
      iteration (torch.profiler); (b) MultiStreamSystem(n_streams=4,
      devices=["cuda:0", "cuda:0"]) over the first 16 frames of phase 7's
      four windows against the one-device S = 4 run of the same frames:
@@ -142,11 +145,12 @@ Phases, in order (any failure raises and exits nonzero):
      sharded full BA of a 25-frame 256x192 sequence against one device's)
      with the original's bounds and 42 FAST launches; leg (c)'s cost,
      pose gap, points, edges, motion vertices and dynamic observations
-     beside the JAX run's (MULTICHIP_r05.json); the launches of one LM
-     iteration of that full BA over 8 shards (torch.profiler: a
-     two-iteration solve less a one-iteration one); and the kernel held to
-     its plain version (atol=0) at the phase's own pyramids: 2 levels of
-     96x64, alone and as S = 1 stacks, and 3 levels of 256x192.
+     beside the JAX run's (MULTICHIP_r05.json); (d) leg (c)'s solve from
+     the graphs the leg captured against the eager sharded
+     solve (cost within 1e-6 relative), and one chunk's host launch calls
+     and kernels (torch.profiler); and the kernel held to its plain
+     version (atol=0) at the phase's own pyramids: 2 levels of 96x64,
+     alone and as S = 1 stacks, and 3 levels of 256x192.
   16. the compiled programs (vdo_slam_tpu_torch/utils/cuda_graph.py; every
      fused tracker, S-stream group and window solve above runs from its
      CUDA graphs), graphed against eager in this process: (a) phase 4's 25
@@ -160,9 +164,10 @@ Phases, in order (any failure raises and exits nonzero):
      host launch calls per frame (at most 50 graphed), the FAST kernels
      the profiler saw against KERNEL.launches, peak memory; (d) each
      window-solve tier (builders.WINDOW_TIERS) on a window of phase 5's
-     map, graphed against eager: the cost within 1e-5 relative, the poses
-     within the bounds of (a), wall ms per solve each way, and each
-     graph's warm-up and capture seconds and pool bytes.
+     map, graphed against eager, with the solver "schur" (the cost within
+     1e-5 relative) and the solver "lm" (within 1e-6): the poses within
+     the bounds of (a), wall ms per solve each way, and each graph's
+     warm-up and capture seconds and pool bytes.
   17. the full BA's graphs and the host Tracker's stage graphs (PR 14),
      graphed against eager in this process: (a) phase 5's map from
      before its full BA at bench.py's caps, warmup_full_ba (its seconds
@@ -184,10 +189,16 @@ FusedTracker._join_ba to time it) and fail on a tracker whose
 ba_failures is not 0.
 Phase 6 ends with the fused path's stage-time probe
 (FusedTracker.calibrate_stage_times) on the wire path's tracker, where
-bench.py runs it: the seven spans, their sum against a whole step, each
-span's kernel launches and device time under torch.profiler, one FAST
-launch per repetition of mask_update and of the whole step, the tracker's
-state unchanged, and timing() non-zero for every span.
+bench.py runs it: the seven spans, each the device time per frame of its
+span's CUDA graph, their sum within 0.85-1.15 of the frame
+program's, the probe's graphs (one shared pool, its bytes) and its FAST
+launches as their records say (each warm-up's, and one per replay of the
+mask_update span and of the frame program), the tracker's state
+unchanged, timing() non-zero for every span; then each span's kernel
+launches and device time run eagerly under torch.profiler, and each
+span's graph and the frame program replayed alone under the profiler,
+each span within max(25 %, 0.2 ms) of its graph's summed device time
+and _frame_ms 0.95-1.25x the frame program's.
 Phases 4 and 5 use `bench_config` / `bench_ba_config` (no wire flags);
 phases 6 and 7 take bench.py's configs, scene, packed frames and stream
 offsets from the port's bench (vdo_slam_tpu_torch/bench.py: bench_config,
@@ -455,6 +466,14 @@ ABS_FLOOR = {"cam_t_rpe": 1e-3, "cam_r_rpe_deg": 0.01, "obj_t_rpe": 5e-3,
 N_FRAMES = 25
 N_DISK = 25                  # frames tracked from disk (26 written)
 PROBE_ROUNDS, PROBE_ITERS = 2, 8
+# phase 6c: each span within max(25 %, 0.2 ms) of the summed device time
+# of its graph replayed alone under the profiler; _frame_ms 0.95-1.25x the
+# frame program's (the events also see the gaps between the graph's ~6,500
+# kernel nodes, ~15 % of the kernels' summed time on an H100); the
+# spans summing to 0.85-1.15 of _frame_ms
+PROBE_SPAN_RTOL, PROBE_SPAN_ATOL_MS = 0.25, 0.2
+PROBE_FRAME_RATIO = (0.95, 1.25)
+PROBE_COVER = (0.85, 1.15)
 SCENE_FIELDS = ("rgb", "depth", "flow", "mask", "T_wc_gt", "obj_H_gt",
                 "obj_pose_gt")
 W, H = 1242, 375
@@ -1856,10 +1875,45 @@ def host_libraries() -> dict:
     return found
 
 
+def probe_fast_launches(report: dict) -> int:
+    """The FAST launches a stage probe made, from its graphs' records
+    (FusedTracker.probe_report): each graph's warm-up's, and its capture's
+    per replay times its replays."""
+    return sum(g["kernel_launches_warm"].get("FastScoreKernel", 0)
+               + g["kernel_launches_per_replay"].get("FastScoreKernel", 0)
+               * g["replays"] for g in report["graphs"])
+
+
+def replay_device_ms(call, n: int) -> float:
+    """The device activity's summed ms per call of n calls of `call` (a
+    captured GraphedCall) under torch.profiler (CUDA activity only); a
+    session that recorded none is retried, twice at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            return sum(e.time_range.elapsed_us() for e in dev) / n / 1e3
+    raise RuntimeError("the profiler recorded no device activity in 3 "
+                       "sessions")
+
+
 def stage_probe(sysm, ds, device, card: str) -> dict:
     """Phase 6c: the fused path's stage-time probe on the wire path's
     tracker, after its timed run, on the frame after the warm frames (as
-    bench.py:390-420 runs it)."""
+    bench.py:390-420 runs it).  The probe's graphs (their FAST launches,
+    one memory pool), the tracker unchanged and the split archived; then
+    each span eagerly under the profiler (its launches and summed device
+    time), and each span's graph and the frame program replayed alone
+    under the profiler (summed device time), which the probe's times are
+    held to (PROBE_SPAN_RTOL / PROBE_SPAN_ATOL_MS, PROBE_FRAME_RATIO); the
+    spans' sum against _frame_ms (PROBE_COVER)."""
     from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
     from vdo_slam_tpu_torch.parallel.multistream import (PROBE_SPANS,
                                                          STAGE_SPANS,
@@ -1877,6 +1931,7 @@ def stage_probe(sysm, ds, device, card: str) -> dict:
                                           n_iters=PROBE_ITERS)
     secs = time.perf_counter() - t0
     launches = KERNEL.launches
+    rep = tracker.probe_report
     spans = {k: times[k] for k in PROBE_SPANS}
     total = sum(spans.values())
     print(f"stage probe ({secs:.2f} s, {PROBE_ROUNDS} rounds of "
@@ -1884,11 +1939,17 @@ def stage_probe(sysm, ds, device, card: str) -> dict:
                                          for k, v in spans.items())
           + f"; _frame_ms {times['_frame_ms']:.3f}, _rtt_ms "
           f"{times['_rtt_ms']:.4f}; spans sum to {total:.3f} ms, "
-          f"{total / times['_frame_ms']:.3f} of a whole step [{card}]")
-    want = PROBE_ITERS * (1 + 2 * PROBE_ROUNDS)
-    if launches != want:
-        raise RuntimeError(f"stage probe: {launches} FAST launches, want "
-                           f"{want}: one per mask_update and per whole step")
+          f"{total / times['_frame_ms']:.3f} of the frame program [{card}]")
+    want = probe_fast_launches(rep)
+    print(f"stage probe's graphs: {len(rep['graphs'])} in one pool of "
+          f"{rep['pool_reserved_bytes']} bytes "
+          f"({rep['pool_reserved_bytes'] / 2**20:.1f} MiB), "
+          f"{launches} FAST launches (the records say {want}); "
+          f"{json.dumps(rep['graphs'])} [{card}]")
+    if len(rep["graphs"]) != len(PROBE_SPANS) + 1 or launches != want:
+        raise RuntimeError(f"stage probe: {len(rep['graphs'])} graphs, "
+                           f"{launches} FAST launches, want "
+                           f"{len(PROBE_SPANS) + 1} and {want}")
     if not (all(math.isfinite(v) for v in spans.values())
             and times["_frame_ms"] > 0):
         raise RuntimeError(f"stage probe: bad times {times}")
@@ -1904,21 +1965,56 @@ def stage_probe(sysm, ds, device, card: str) -> dict:
             and all(timing[f"{k}_ms"] > 0 for k in STAGE_SPANS)):
         raise RuntimeError("the probe's stage times are not archived with "
                            "every frame")
-    # each span alone under the profiler: its kernels and device time
+    # each span alone and eagerly under the profiler: its kernels and
+    # summed device time
     staged, draws = tracker.probe_inputs(fd)
     probe = make_scan_probe(tracker.cfg, device)
     per_span = {}
     for name, span, ctx in probe.contexts(tracker.state, staged, draws):
         _, n_k, dev_ms, wall_ms = _profiled(lambda: span(ctx),
                                             f"span {name}")
-        per_span[name] = {"launches": n_k, "device_ms": dev_ms,
-                          "wall_ms": wall_ms}
+        per_span[name] = {"launches": n_k, "eager_device_ms": dev_ms,
+                          "eager_wall_ms": wall_ms}
         print(f"span {name} under torch.profiler: {n_k} kernel launches, "
               f"{dev_ms:.3f} ms on the device in {wall_ms:.3f} ms [{card}]")
     print(f"spans' launches sum to "
           f"{sum(r['launches'] for r in per_span.values())} per frame "
           f"[{card}]")
-    return {"times": times, "launches": launches, "per_span": per_span}
+    # each program of the probe replayed alone under the profiler
+    progs = probe.programs(tracker.state, staged, draws)
+    progs.build()
+    for name, call in zip(PROBE_SPANS, progs.spans):
+        per_span[name]["graph_device_ms"] = replay_device_ms(call,
+                                                             PROBE_ITERS)
+    progs.reset_frame()
+    frame_dev = replay_device_ms(progs.frame, PROBE_ITERS)
+    progs.close()
+    rows = [(k, spans[k], per_span[k]["graph_device_ms"],
+             per_span[k]["eager_device_ms"]) for k in PROBE_SPANS]
+    rows.append(("_frame_ms", times["_frame_ms"], frame_dev,
+                 sum(r[3] for r in rows)))
+    for k, t, dev, eager in rows:
+        print(f"6c, {k}: probe {t:.3f} ms; its graph replayed alone under "
+              f"the profiler {dev:.3f} ms of device activity (probe / that "
+              f"{t / dev:.3f}); eagerly {eager:.3f} ms ({t / eager:.3f}) "
+              f"[{card}]")
+    cover = total / times["_frame_ms"]
+    print(f"6c, the spans sum to {total:.3f} ms, {cover:.3f} of _frame_ms "
+          f"{times['_frame_ms']:.3f} (bounds {PROBE_COVER}) [{card}]")
+    for k, t, dev, _ in rows[:-1]:
+        if not abs(t - dev) <= max(PROBE_SPAN_RTOL * dev,
+                                   PROBE_SPAN_ATOL_MS):
+            raise RuntimeError(f"6c: span {k} {t:.4f} ms, its graph "
+                               f"{dev:.4f} ms of device activity")
+    ratio = times["_frame_ms"] / frame_dev
+    if not PROBE_FRAME_RATIO[0] <= ratio <= PROBE_FRAME_RATIO[1]:
+        raise RuntimeError(f"6c: _frame_ms {times['_frame_ms']:.4f}, the "
+                           f"frame program {frame_dev:.4f} ms of device "
+                           f"activity ({ratio:.3f}x)")
+    if not PROBE_COVER[0] <= cover <= PROBE_COVER[1]:
+        raise RuntimeError(f"6c: the spans cover {cover:.3f} of _frame_ms")
+    return {"times": times, "launches": launches, "per_span": per_span,
+            "frame_device_ms": frame_dev, "report": rep, "seconds": secs}
 
 
 def settings_yaml(cfg) -> str:
@@ -2174,7 +2270,9 @@ ORB_ANGLE_TOL, ORB_STRONG_M, ORB_MOMENT_TOL, ORB_BITS = 1e-4, 20.0, 2e-3, 0.99
 
 def sharded_ba(ba: dict, cfg, device, card: str) -> dict:
     """Phase 12a: phase 5's map from before its full BA, refined with the
-    edges sharded over [device] * n, against phase 5's full BA."""
+    edges sharded over [device] * n, against phase 5's full BA; then each
+    n > 1 from its graphs against the eager sharded solve
+    (sharded_graphs)."""
     import copy
 
     from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
@@ -2186,7 +2284,8 @@ def sharded_ba(ba: dict, cfg, device, card: str) -> dict:
     ref_poses = np.stack(ref.cam_pose_rf).astype(np.float64)
     print(f"torch.cuda.device_count() = {torch.cuda.device_count()}; the "
           f"shards below share one card [{card}]")
-    out = {"t_solve_s": {}, "launches_per_iter": {}, "pose_gap": {}}
+    out = {"t_solve_s": {}, "pose_gap": {}}
+    reps = {}
     KERNEL.launches = 0
     for n in SHARDS:
         m = copy.deepcopy(pre)
@@ -2209,22 +2308,80 @@ def sharded_ba(ba: dict, cfg, device, card: str) -> dict:
                                f"cost")
         gate(metric_report(m, refined=True), JAX_REF_BA["refined"],
              f" (full BA over {n} shard(s), refined)")
+        reps[n] = (rep, m)
         out["t_solve_s"][n] = rep["t_solve_s"]
         out["pose_gap"][n] = gap
-    for n in SHARDS[1:]:
-        rep, launches, dev_ms, wall_ms = _profiled(
-            lambda: full_ba_inplace(copy.deepcopy(pre), cfg, device=device,
-                                    devices=[device] * n),
-            f"full BA over {n} shards", host_ops=False)
-        per = launches / rep["iters_run"]
-        print(f"full BA over {n} shards under torch.profiler: {launches} "
-              f"kernel launches in {rep['iters_run']} LM iterations "
-              f"({per:.1f} per iteration, graph build, upload and fetch "
-              f"included), {dev_ms:.3f} ms on the device in {wall_ms:.3f} "
-              f"ms, busy share {dev_ms / wall_ms:.4f} [{card}]")
-        out["launches_per_iter"][n] = per
+    out["graphed"] = sharded_graphs(pre, cfg, device, card, reps, ref_rep)
     if KERNEL.launches:
         raise RuntimeError("the full BA launched the FAST kernel")
+    return out
+
+
+def sharded_graphs(pre, cfg, device, card: str, eager: dict,
+                   one: dict) -> dict:
+    """Phase 12a, graphed: for each shard count n > 1, FullBAGraphs over
+    [device] * n warmed by warmup_full_ba (one graph per chunk length),
+    then full_ba_inplace from them on a copy of `pre`, against the eager
+    sharded solve of the same n (`eager`: its report and map): the cost
+    within GRAPH_SHARD_COST_RTOL, the refined poses within the stream
+    bounds; beside the one-device full BA's cost (`one`), and the host
+    launch calls per chunk of a graphed solve."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
+                                                    full_ba_inplace,
+                                                    warmup_full_ba)
+
+    out = {}
+    for n in SHARDS[1:]:
+        devices = [device] * n
+        graphs = FullBAGraphs(devices)
+        t0 = time.perf_counter()
+        warmup_full_ba(cfg, pre.num_frames, graphs)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        m = copy.deepcopy(pre)
+        t0 = time.perf_counter()
+        rep = full_ba_inplace(m, cfg, device=device, devices=devices,
+                              graphs=graphs)
+        wall = (time.perf_counter() - t0) * 1e3
+        e_rep, e_map = eager[n]
+        rel = abs(rep["cost"] - e_rep["cost"]) / e_rep["cost"]
+        rel_one = abs(rep["cost"] - one["cost"]) / one["cost"]
+        gaps = [_pose_gap(a, b) for a, b in zip(m.cam_pose_rf,
+                                               e_map.cam_pose_rf)]
+        dt, dr = max(x[0] for x in gaps), max(x[1] for x in gaps)
+        mm = copy.deepcopy(pre)
+        calls, kernels, _ = _host_launches(
+            lambda: full_ba_inplace(mm, cfg, device=device, devices=devices,
+                                    graphs=graphs))
+        chunks = len(rep["chunk_times"])
+        per_iter = kernels / rep["iters_run"]
+        out[n] = {"warm_s": warm, "wall_ms": wall, "cost": rep["cost"],
+                  "cost_rel_eager": rel, "cost_rel_one": rel_one,
+                  "pose_gap": (dt, dr), "host_calls": calls,
+                  "host_calls_per_chunk": calls / chunks,
+                  "kernels": kernels, "kernels_per_iter": per_iter,
+                  "records": graphs.records()}
+        print(f"12a, full BA over {n} shards from its graphs: warm-up and "
+              f"capture {warm:.3f} s ({len(graphs.records())} graphs: "
+              f"{json.dumps(graphs.records())}); {rep['iters_run']} LM "
+              f"iterations in {chunks} chunks, cost {rep['cost0']:.9g} -> "
+              f"{rep['cost']:.9g}, {rel:.3e} from the eager sharded solve "
+              f"({e_rep['cost']:.9g}) and {rel_one:.3e} from one device's "
+              f"({one['cost']:.9g}); largest pose gap to the eager sharded "
+              f"solve {dt:.3e} m, {dr:.3e} deg; wall {wall:.3f} ms, solve "
+              f"{rep['t_solve_s']:.4f} s against {e_rep['t_solve_s']:.4f} s "
+              f"eager; {calls} host launch calls ({calls / chunks:.1f} per "
+              f"chunk) and {kernels} kernels per graphed solve "
+              f"({per_iter:.1f} per LM iteration, graph build, upload and "
+              f"fetch included) [{card}]")
+        if not rel <= GRAPH_SHARD_COST_RTOL:
+            raise RuntimeError(f"12a: {n} shards graphed, cost {rel:.3e} "
+                               f"from the eager sharded solve")
+        if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+            raise RuntimeError(f"12a: {n} shards graphed, poses {dt} m, "
+                               f"{dr} deg from the eager sharded solve")
     return out
 
 
@@ -2394,10 +2551,10 @@ def bench_hard(device, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     rec = _bench_record(buf.getvalue(), "kitti_synth_hard_fps")
     n = res["frames"]
-    # calibrate_stage_times's 2 rounds: each repetition of mask_update and
-    # of the whole step launches the kernel once
+    # the stage probe's, from its graphs' records: each warm-up's, and
+    # each capture's launch per replay
     probe = (0 if os.environ.get("VDO_BENCH_NO_PROBE")
-             else port_bench.PROBE_ITERS * (1 + 2 * 2))
+             else probe_fast_launches(res["system"].tracker.probe_report))
     solves = res["window_solve_ms"]
     first = solves[0] if solves else math.nan
     rest = float(np.median(solves[1:])) if len(solves) > 1 else math.nan
@@ -2693,14 +2850,11 @@ def graft_entry_phase(device, card: str) -> dict:
     over the one card (cuda:0 eight times) with the original's asserts,
     its FAST launches (one per stream group per frame in leg (a): 16; 2 for
     the solo step; 24 for leg (c)'s tracking), leg (c)'s numbers beside the
-    JAX run's, the launches per LM iteration of leg (c)'s full BA over 8
-    shards (torch.profiler: a two-iteration solve less a one-iteration
-    one), and the kernel against its plain version at this phase's
-    pyramid shapes."""
-    import copy
-
+    JAX run's, leg (c)'s full BA from its graphs (captured in the leg)
+    against the eager one (cost within GRAPH_SHARD_COST_RTOL) with its
+    host launch calls and kernels per chunk, and the kernel against its
+    plain version at this phase's pyramid shapes."""
     from vdo_slam_tpu_torch import graft_entry
-    from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
     from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
 
     fn, args = graft_entry.entry()
@@ -2747,32 +2901,72 @@ def graft_entry_phase(device, card: str) -> dict:
             <= graft_entry.COST_REL_TOL * ba["cost_ref"] + 1e-6):
         raise RuntimeError("dryrun_multichip: the sharded full BA out of "
                            "bounds")
-    # one- and two-iteration solves under the profiler (reading a trace of
-    # all six iterations' ~265,000 kernels took tens of seconds): their
-    # difference is one LM iteration, without the graph build, upload and
-    # fetch both include
-    runs = {}
-    for iters in (1, 2):
-        rep, n_k, dev_ms, wall_ms = _profiled(
-            lambda it=iters: full_ba_inplace(
-                copy.deepcopy(ba["map"]), ba["config"], iters=it,
-                device=device, devices=[device] * N_GRAFT),
-            f"leg (c)'s full BA over {N_GRAFT} shards, {iters} LM "
-            f"iteration(s)", host_ops=False)
-        runs[rep["iters_run"]] = (n_k, dev_ms, wall_ms)
-    if sorted(runs) != [1, 2]:
-        raise RuntimeError(f"leg (c)'s full BA ran {sorted(runs)} LM "
-                           f"iterations, want [1, 2]")
-    per = runs[2][0] - runs[1][0]
-    print(f"(15c) leg (c)'s full BA over {N_GRAFT} shards under "
-          f"torch.profiler: {per} kernel launches per LM iteration ("
-          f"{runs[1][0]} in a one-iteration solve, {runs[2][0]} in a "
-          f"two-iteration one, graph build, upload and fetch included in "
-          f"both; {runs[1][1]:.3f} / {runs[2][1]:.3f} ms on the device in "
-          f"{runs[1][2]:.3f} / {runs[2][2]:.3f} ms) [{card}]")
+    graphed = graft_graphs(ba, device, card)
     err = check_graft_pyramids(args, device)
     return {"entry_launches": entry_launches, "launches": launches,
-            "seconds": secs, "launches_per_iter": per, "max_abs_err": err}
+            "seconds": secs, "max_abs_err": err, "graphed": graphed}
+
+
+def graft_graphs(ba: dict, device, card: str) -> dict:
+    """Phase 15d: dryrun_multichip's leg (c) solved over its N_GRAFT shards
+    from the graphs the leg captured (full_ba.graphs_for) against the
+    eager sharded solve of the same map: the costs, the relative gap
+    (GRAPH_SHARD_COST_RTOL), the largest pose gap (the stream bounds),
+    wall ms each way; then one chunk's solve (full_ba_chunk iterations,
+    which replays the same graph) under torch.profiler: host launch calls
+    and kernels per chunk (a trace of the whole solve's ~265,000 kernels
+    takes tens of seconds to read)."""
+    import copy
+
+    from vdo_slam_tpu_torch import graft_entry
+    from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
+
+    graphs = ba["graphs"]
+    chunk = ba["config"].backend.full_ba_chunk
+    if graphs is None or not graphs.records():
+        raise RuntimeError("15d: leg (c) captured no full-BA graph")
+    devices = [device] * N_GRAFT
+    res = {}
+    for name, g in (("eager", None), ("graphed", graphs)):
+        m = copy.deepcopy(ba["map"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = full_ba_inplace(m, ba["config"],
+                              iters=graft_entry.FULL_BA_ITERS, device=device,
+                              devices=devices, graphs=g)
+        res[name] = (rep, m, (time.perf_counter() - t0) * 1e3)
+    (e, me, wall_e), (gr, mg, wall_g) = res["eager"], res["graphed"]
+    rel = abs(gr["cost"] - e["cost"]) / e["cost"]
+    gaps = [_pose_gap(a, b) for a, b in zip(mg.cam_pose_rf, me.cam_pose_rf)]
+    dt, dr = max(x[0] for x in gaps), max(x[1] for x in gaps)
+    mh = copy.deepcopy(ba["map"])
+    n_calls = len(graphs._calls)
+    one = {}
+    calls, kernels, _ = _host_launches(
+        lambda: one.update(full_ba_inplace(
+            mh, ba["config"], iters=chunk, device=device,
+            devices=devices, graphs=graphs)))
+    print(f"(15d) leg (c)'s full BA over {N_GRAFT} shards from its graphs "
+          f"({json.dumps(graphs.records())}): cost {gr['cost0']:.9g} -> "
+          f"{gr['cost']:.9g} graphed, {e['cost0']:.9g} -> {e['cost']:.9g} "
+          f"eager (relative gap {rel:.3e}; the leg's own solve "
+          f"{ba['cost']:.9g}); largest pose gap {dt:.3e} m, {dr:.3e} deg; "
+          f"wall {wall_g:.3f} / {wall_e:.3f} ms over "
+          f"{len(gr['chunk_times'])} chunks; one chunk's solve: {calls} host "
+          f"launch calls and {kernels} kernels ({kernels / chunk:.0f} per "
+          f"LM iteration, graph build, upload and fetch included) "
+          f"[{card}]")
+    if not rel <= GRAPH_SHARD_COST_RTOL:
+        raise RuntimeError(f"15d: graphed cost {gr['cost']}, eager "
+                           f"{e['cost']}")
+    if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
+        raise RuntimeError(f"15d: poses {dt} m, {dr} deg apart")
+    if len(graphs._calls) != n_calls or one["iters_run"] != chunk:
+        raise RuntimeError("15d: the one-chunk solve did not replay the "
+                           "leg's graph")
+    return {"cost_rel": rel, "pose_gap": (dt, dr), "wall_ms": wall_g,
+            "eager_wall_ms": wall_e, "host_calls_per_chunk": calls,
+            "kernels_per_chunk": kernels}
 
 
 # phase 16: graphed against eager.  The S = 1 cell is phase 4's 25 frames,
@@ -2781,6 +2975,9 @@ def graft_entry_phase(device, card: str) -> dict:
 # equal object estimates.  A tier's graphed window solve is held to the
 # eager one within GRAPH_COST_RTOL of the cost and the same pose bounds.
 GRAPH_COST_RTOL = 1e-5
+# the window solver "lm" and the edge-sharded full BA: graphed
+# against eager within 1e-6 of the cost
+GRAPH_LM_COST_RTOL = GRAPH_SHARD_COST_RTOL = 1e-6
 GRAPH_HOST_CALLS_MAX = 50      # host launch calls per steady tracked frame
 GRAPH_DISPATCH_CHUNKS = 6      # chunks of 4 frames timed each way
 GRAPH_SOLVE_REPS = 3
@@ -2972,17 +3169,18 @@ def graphs_dispatch(cfg, pds, device, card: str) -> dict:
 
 
 def graphs_solves(m, cfg, device, card: str) -> dict:
-    """Phase 16d: each window-solve tier, graphed against eager, on window
-    graphs of phase 5's map before its full BA (the first window end that
-    falls in each builders.WINDOW_TIERS entry): the cost within
-    GRAPH_COST_RTOL, every pose within the stream bounds, and each way's
-    wall ms per solve (upload, solve, wait, fetch; the median of
-    GRAPH_SOLVE_REPS)."""
+    """Phase 16d: each window-solve tier, graphed against eager, with
+    each window solver (window_ba.SOLVERS: "schur" and "lm"),
+    on window graphs of phase 5's map before its full BA (the first window
+    end that falls in each builders.WINDOW_TIERS entry): the cost within
+    GRAPH_COST_RTOL ("schur") or GRAPH_LM_COST_RTOL ("lm"), every pose
+    within the stream bounds, and each way's wall ms per solve (upload,
+    solve, wait, fetch; graphed the median of GRAPH_SOLVE_REPS, eager one
+    solve after an untimed one)."""
     from vdo_slam_tpu_torch.backend import builders
-    from vdo_slam_tpu_torch.backend.factor_graph import (fetch,
-                                                         lm_solve_schur,
-                                                         upload)
-    from vdo_slam_tpu_torch.backend.window_ba import WindowGraphs, _lm_params
+    from vdo_slam_tpu_torch.backend.factor_graph import fetch, upload
+    from vdo_slam_tpu_torch.backend.window_ba import (SOLVERS, WindowGraphs,
+                                                      _lm_params)
 
     p = _lm_params(cfg)
     tiers = {}
@@ -2995,28 +3193,31 @@ def graphs_solves(m, cfg, device, card: str) -> dict:
         raise RuntimeError(f"16d: the window ends {BA_WINDOW_ENDS} fill "
                            f"tiers {sorted(tiers)} only")
     graphs = WindowGraphs(device)
+    solver = "schur"
 
     def eager(g, v):
-        vv, info = lm_solve_schur(*upload(g, v, device), p)
+        vv, info = SOLVERS[solver](*upload(g, v, device), p)
         return fetch((vv.poses, info["cost0"], info["cost"]))
 
     def graphed(g, v):
-        with graphs.solve(g, v, p) as (vv, info):
+        with graphs.solve(g, v, p, solver) as (vv, info):
             return fetch((vv.poses, info["cost0"], info["cost"]))
 
-    def wall(fn, g, v):
+    def wall(fn, g, v, reps=GRAPH_SOLVE_REPS):
         ts = []
-        for _ in range(GRAPH_SOLVE_REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             res = fn(g, v)
             ts.append((time.perf_counter() - t0) * 1e3)
         return res, float(np.median(ts))
 
     out = {}
-    for tier, (end, g, v, meta) in sorted(tiers.items()):
+    for solver, tier in ((sv, t) for sv in SOLVERS for t in sorted(tiers)):
+        end, g, v, meta = tiers[tier]
+        rtol = GRAPH_COST_RTOL if solver == "schur" else GRAPH_LM_COST_RTOL
         eager(g, v)
         graphed(g, v)                        # the warm-up
-        (pe, c0e, ce), ms_e = wall(eager, g, v)
+        (pe, c0e, ce), ms_e = wall(eager, g, v, reps=1)
         (pg, c0g, cg), ms_g = wall(graphed, g, v)   # capture, replays
         (pg, c0g, cg), ms_g = wall(graphed, g, v)   # replays
         calls, kernels, _ = _host_launches(lambda: graphed(g, v))
@@ -3024,26 +3225,27 @@ def graphs_solves(m, cfg, device, card: str) -> dict:
         dt, dr = max(x[0] for x in gaps), max(x[1] for x in gaps)
         rel = abs(float(cg) - float(ce)) / float(ce)
         rec = graphs.records()[-1] if graphs.records() else None
-        out[tier] = {"end": end, "points": meta.n_static_points,
+        out[solver, tier] = {"end": end, "points": meta.n_static_points,
                      "eager_ms": ms_e, "graphed_ms": ms_g,
                      "cost_eager": float(ce), "cost_graphed": float(cg),
                      "cost_rel": rel, "pose_gap": (dt, dr),
                      "host_calls": calls, "kernels": kernels,
                      "capture": rec}
-        print(f"16d, window tier {tier} {builders.WINDOW_TIERS[tier]} (end "
-              f"{end}, {meta.n_static_points} points): wall {ms_g:.3f} ms "
+        print(f"16d, solver {solver}, window tier {tier} "
+              f"{builders.WINDOW_TIERS[tier]} (end {end}, "
+              f"{meta.n_static_points} points): wall {ms_g:.3f} ms "
               f"graphed against {ms_e:.3f} ms eager per solve; cost "
               f"{float(c0g):.9g} -> {float(cg):.9g} graphed, "
               f"{float(c0e):.9g} -> {float(ce):.9g} eager (relative gap "
               f"{rel:.3e}); largest pose gap {dt:.3e} m, {dr:.3e} deg; "
               f"{calls} host launch calls and {kernels} kernels per graphed "
               f"solve; capture {json.dumps(rec)} [{card}]")
-        if not rel <= GRAPH_COST_RTOL:
-            raise RuntimeError(f"16d tier {tier}: cost {cg} graphed, {ce} "
-                               f"eager")
+        if not rel <= rtol:
+            raise RuntimeError(f"16d {solver} tier {tier}: cost {cg} "
+                               f"graphed, {ce} eager")
         if not (dt < STREAM_T_TOL_M and dr < STREAM_R_TOL_DEG):
-            raise RuntimeError(f"16d tier {tier}: poses {dt} m, {dr} deg "
-                               f"apart")
+            raise RuntimeError(f"16d {solver} tier {tier}: poses {dt} m, "
+                               f"{dr} deg apart")
     return out
 
 
@@ -3401,6 +3603,11 @@ def main() -> int:
     probed = probes(device, card)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s (budget "
           f"{PHASE14_BUDGET_S} s)")
+    loop_ms = probed["probe_loop"]["device_ms_frame"]
+    print(f"6c's _frame_ms {probe['times']['_frame_ms']:.3f} against "
+          f"probe_loop's device_ms_frame {loop_ms:.3f} (the kernels' summed "
+          f"time per graphed frame): "
+          f"{probe['times']['_frame_ms'] / loop_ms:.3f}x [{card}]")
     phase_done("14 (probe_loop and probe_chunk)")
     t15 = time.perf_counter()
     graft = graft_entry_phase(device, card)

@@ -13,7 +13,11 @@ tests/test_torch_backend.py, under that file's small full-graph caps.
     package's full_ba_inplace;
   * chunks of one LM iteration over three: the reported cost0 and stats0
     are chunk 0's, although every later chunk's replay overwrites the
-    graph's outputs.
+    graph's outputs;
+  * the edge-sharded solve through FullBAGraphs over ["cpu"] * n
+    (warmup_full_ba, then full_ba_inplace) bit-equal to the eager sharded
+    full_ba_inplace over the same list; graphs made for another device
+    list than the solve's, and graphs over distinct cards, raise.
 """
 
 import copy
@@ -185,3 +189,45 @@ def test_first_chunk_cost_survives_later_replays(capped):
     eager = pfull.full_ba_inplace(port_map(jm0), cfg, device="cpu")
     assert (rep["cost0"], rep["cost"]) == (eager["cost0"], eager["cost"])
     _same_stats(rep["edge_stats0"], eager["edge_stats0"])
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_solve_from_graphs_equals_eager_sharded(capped, n):
+    """full_ba_inplace over ["cpu"] * n from FullBAGraphs over the same
+    list (warmed by warmup_full_ba, which captures every graph the solve
+    then replays) against the eager sharded full_ba_inplace: the report
+    and the written-back map bit-equal.  A solve over another list than
+    the graphs' raises."""
+    jm0, _, pcfg = capped
+    cfg = pcfg.replace(backend=dataclasses.replace(
+        pcfg.backend, full_iters=5, full_ba_chunk=3, full_gain_thres=0.0))
+    devices = ["cpu"] * n
+    graphs = pfull.FullBAGraphs(devices)
+    pfull.warmup_full_ba(cfg, jm0.num_frames, graphs)
+    assert sorted(p.iters for _, p in graphs._calls) == [2, 3]
+    keys = set(graphs._calls)
+    gm, em = port_map(jm0), port_map(jm0)
+    rep = pfull.full_ba_inplace(gm, cfg, device="cpu", devices=devices,
+                                graphs=graphs)
+    assert rep["iters_run"] == 5 and set(graphs._calls) == keys
+    eager = pfull.full_ba_inplace(em, cfg, device="cpu", devices=devices)
+    assert (rep["cost0"], rep["cost"]) == (eager["cost0"], eager["cost"])
+    assert rep["cost"] < rep["cost0"]
+    _same_stats(rep["edge_stats0"], eager["edge_stats0"])
+    _same_stats(rep["edge_stats"], eager["edge_stats"])
+    _same_map(gm, em)
+    with pytest.raises(ValueError, match="graphs for"):
+        pfull.full_ba_inplace(port_map(jm0), cfg, device="cpu",
+                              graphs=graphs)
+
+
+@pytest.mark.parametrize("devices", [["cpu", "cuda:0"],
+                                     ["cuda:0", "cuda:1", "cuda:0"]])
+def test_graphs_over_distinct_cards_raise(devices):
+    """FullBAGraphs over a list that names distinct cards raises (their
+    sharded solve stays eager), and graphs_for gives no graphs there."""
+    with pytest.raises(ValueError, match="distinct cards"):
+        pfull.FullBAGraphs(devices)
+    assert pfull.graphs_for("cpu", devices) is None
+    assert pfull.graphs_for("cpu", ["cpu"] * 3).devices == [
+        torch.device("cpu")] * 3

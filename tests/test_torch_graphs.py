@@ -7,7 +7,8 @@ eagerly, and are held here to the eager functions called by hand.
     (fused_chunk 1 and 4, and a padded tail chunk): archive and final state
     bit-equal;
   * a 2-stream MultiStreamSystem against its batched step driven by hand;
-  * each window-solve tier against lm_solve_schur called directly;
+  * each window-solve tier against lm_solve_schur called directly, and
+    with the solver "lm" against lm_solve;
   * what a caller holds (a report, a state, a chunk's output vectors, the
     archive) unchanged by the next step: the static outputs are copied out;
   * a checkpoint resumed mid-run against the uninterrupted run;
@@ -29,8 +30,8 @@ import pytest
 import torch
 
 from vdo_slam_tpu_torch.backend import builders
-from vdo_slam_tpu_torch.backend.factor_graph import (fetch, lm_solve_schur,
-                                                     upload)
+from vdo_slam_tpu_torch.backend.factor_graph import (fetch, lm_solve,
+                                                     lm_solve_schur, upload)
 from vdo_slam_tpu_torch.backend.window_ba import (WindowGraphs, _lm_params,
                                                   local_ba_inplace,
                                                   warmup_window_ba)
@@ -210,6 +211,43 @@ def test_window_tier_equals_direct_solve(tracked_map, monkeypatch, tier):
             np.testing.assert_array_equal(a, b)
     assert len(graphs._solves) == 1
     assert float(want[1]["cost"]) < float(want[1]["cost0"])
+
+
+@pytest.mark.parametrize("tier", range(len(builders.WINDOW_TIERS)))
+def test_window_tier_lm_equals_direct_solve(tracked_map, monkeypatch, tier):
+    """The window solver "lm" (matrix-free PCG) through WindowGraphs, three
+    solves as above, against lm_solve called directly on the uploaded
+    graph: every output equal; the same window solved with "schur" is a
+    graph of its own (the graphs are keyed on the solver), and
+    local_ba_inplace(solver="lm") through the caller's graphs writes the
+    same map as through its own."""
+    m, cfg = tracked_map
+    monkeypatch.setattr(builders, "WINDOW_TIERS",
+                        (builders.WINDOW_TIERS[tier],))
+    g, v, _ = builders.build_window_graph(m, cfg, window=6)
+    p = _lm_params(cfg)
+    vd, infod = lm_solve(*upload(g, v, "cpu"), p)
+    want = fetch((vd, infod))
+    graphs = WindowGraphs("cpu")
+    for _ in range(3):
+        with graphs.solve(g, v, p, solver="lm") as out:
+            got = fetch(out)
+        for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0],
+                        strict=True):
+            np.testing.assert_array_equal(a, b)
+    assert float(want[1]["cost"]) < float(want[1]["cost0"])
+    with graphs.solve(g, v, p):
+        pass
+    assert sorted(k[1] for k in graphs._solves) == ["lm", "schur"]
+    ma, mb = copy.deepcopy(m), copy.deepcopy(m)
+    ra = local_ba_inplace(ma, cfg, window=6, solver="lm", device="cpu",
+                          graphs=graphs)
+    rb = local_ba_inplace(mb, cfg, window=6, solver="lm", device="cpu")
+    assert (ra["cost0"], ra["cost"]) == (float(want[1]["cost0"]),
+                                         float(want[1]["cost"]))
+    assert (ra["cost0"], ra["cost"]) == (rb["cost0"], rb["cost"])
+    np.testing.assert_array_equal(np.stack(ma.cam_pose),
+                                  np.stack(mb.cam_pose))
 
 
 def test_local_ba_through_graphs_equals_its_own(tracked_map):

@@ -21,11 +21,14 @@ tracker and S = 4 system against their steps called op by op on the card
 frame, each window-solve tier's graph against lm_solve_schur op by op
 (cost within 1e-5 relative, poses within 1e-4), the full BA's graph
 against the eager full BA (cost within 1e-5 relative, poses within
-1e-5), each host Tracker stage's replay against its eager call on the
-same inputs, and the small linear solves of the step and the window solve
-captured and replayed bit-equal to the eager call.  Every test here skips without a
-CUDA device.  This file imports no JAX, so it runs on a machine without
-it:
+1e-5), the edge-sharded full BA's graphs over ["cuda:0"] * n and the
+window solver "lm"'s graph against their eager solves (cost within 1e-6
+relative), the stage probe's spans against the profiler's device time of
+each span's graph, each host Tracker stage's replay against its eager
+call on the same inputs, and the small linear solves of the step and the
+window solve captured and replayed bit-equal to the eager call.  Every
+test here skips without a CUDA device.  This file imports no JAX, so it
+runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
 
@@ -882,6 +885,152 @@ def test_full_ba_graph_matches_eager(tracked_map):
             np.testing.assert_allclose(a, b, atol=1e-5)
 
 
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_full_ba_graph_matches_eager(tracked_map, n_dev):
+    """full_ba_inplace over ["cuda:0"] * n_dev from FullBAGraphs over the
+    same list (warmup_full_ba at small full_* caps, then the solve, which
+    replays one graph per chunk length) against the eager sharded
+    full_ba_inplace: the cost within 1e-6 relative, every refined pose
+    entry within 1e-5; each capture names its shard count."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
+                                                   full_ba_inplace,
+                                                   warmup_full_ba)
+
+    m, cfg = tracked_map
+    cfg = cfg.replace(backend=dataclasses.replace(
+        cfg.backend, full_obs_cap=16384, full_ter_cap=8192,
+        full_point_cap=16384, full_motion_cap=64, full_smo_cap=64))
+    devices = ["cuda:0"] * n_dev
+    graphs = FullBAGraphs(devices)
+    warmup_full_ba(cfg, m.num_frames, graphs)
+    keys = set(graphs._calls)
+    me, mg = copy.deepcopy(m), copy.deepcopy(m)
+    eager = full_ba_inplace(me, cfg, device="cuda", devices=devices)
+    graphed = full_ba_inplace(mg, cfg, device="cuda", devices=devices,
+                              graphs=graphs)
+    assert set(graphs._calls) == keys and len(graphs.records()) == len(keys)
+    assert all(r["name"].endswith(f"shards={n_dev}")
+               for r in graphs.records())
+    assert graphed["iters_run"] == eager["iters_run"]
+    assert graphed["cost0"] == pytest.approx(eager["cost0"], rel=1e-6)
+    assert abs(graphed["cost"] - eager["cost"]) <= 1e-6 * eager["cost"]
+    assert graphed["cost"] < graphed["cost0"]
+    for a, b in zip(mg.cam_pose_rf, me.cam_pose_rf, strict=True):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+@pytest.mark.parametrize("tier", [0, 1])
+def test_window_lm_graph_matches_eager(tracked_map, monkeypatch, tier):
+    """The window solver "lm" from WindowGraphs (the third solve replays
+    its graph) against lm_solve op by op on the card, at each
+    WINDOW_TIERS entry: the cost within 1e-6 relative, poses within 1e-4;
+    local_ba_inplace(solver="lm") through the same graphs lowers the
+    cost."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend import builders
+    from vdo_slam_tpu_torch.backend.factor_graph import (fetch, lm_solve,
+                                                         upload)
+    from vdo_slam_tpu_torch.backend.window_ba import (WindowGraphs,
+                                                      _lm_params,
+                                                      local_ba_inplace)
+
+    m, cfg = tracked_map
+    monkeypatch.setattr(builders, "WINDOW_TIERS",
+                        (builders.WINDOW_TIERS[tier],))
+    g, v, _ = builders.build_window_graph(m, cfg, window=6)
+    p = _lm_params(cfg)
+    ve, ie = lm_solve(*upload(g, v, "cuda"), p)
+    pe, ce = fetch((ve.poses, ie["cost"]))
+    graphs = WindowGraphs("cuda")
+    for _ in range(3):
+        with graphs.solve(g, v, p, solver="lm") as (vg, ig):
+            pg, cg = fetch((vg.poses, ig["cost"]))
+    assert [r["name"].endswith("solver=lm") for r in graphs.records()] == [
+        True]
+    assert abs(float(cg) - float(ce)) <= 1e-6 * float(ce)
+    np.testing.assert_allclose(pg, pe, atol=1e-4)
+    rep = local_ba_inplace(copy.deepcopy(m), cfg, window=6, solver="lm",
+                           device="cuda", graphs=graphs)
+    assert len(graphs.records()) == 1 and rep["cost"] < rep["cost0"]
+
+
+def _replay_device_ms(call, n: int) -> float:
+    """The device activity's summed ms per call of n calls of `call` (a
+    captured GraphedCall) under torch.profiler; a session that recorded
+    none (the profiler now and then records no device event) is retried,
+    twice at most, as chip_smoke's replay_device_ms does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if dev:
+            return sum(e.time_range.elapsed_us() for e in dev) / n / 1e3
+    raise AssertionError("the profiler recorded no device activity in 3 "
+                         "sessions")
+
+
+def test_stage_probe_spans_are_device_times():
+    """calibrate_stage_times on the card (a fused System at 320x240 after
+    8 frames): the FAST launches are what its graphs' records and replays
+    say, the tracker's state and frame counter unchanged, all graphs in
+    one pool; each span within max(25 %, 0.2 ms) of the profiler's summed
+    device time of the same span's graph replayed alone, _frame_ms
+    0.95-1.25x the frame program's (chip_smoke's PROBE_FRAME_RATIO: the
+    events also see the gaps between the graph's kernel nodes), and the
+    spans sum to 0.85-1.15 of _frame_ms."""
+    from vdo_slam_tpu_torch.parallel.multistream import (PROBE_SPANS,
+                                                         _flatten,
+                                                         make_scan_probe)
+    from vdo_slam_tpu_torch.pipeline import System
+
+    scene = make_scene(num_frames=11, width=320, height=240, num_objects=2,
+                       seed=3)
+    cfg = _small_cfg()
+    ds = SyntheticDataset(scene, depth_map_factor=1.0, bf=40.0)
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=False,
+                  mode="fused", device="cuda")
+    sysm.run_sequence(ds, max_frames=8)
+    tr = sysm.tracker
+    before, fid = [t.clone() for t in _flatten(tr.state)], tr.frame_id
+    n0 = KERNEL.launches
+    times = tr.calibrate_stage_times(ds[8], rounds=2, n_iters=4)
+    launches = KERNEL.launches - n0
+    rep = tr.probe_report
+    assert len(rep["graphs"]) == len(PROBE_SPANS) + 1
+    want = sum(g["kernel_launches_warm"].get("FastScoreKernel", 0)
+               + g["kernel_launches_per_replay"].get("FastScoreKernel", 0)
+               * g["replays"] for g in rep["graphs"])
+    assert launches == want > 0
+    assert rep["pool_reserved_bytes"] > 0
+    assert tr.frame_id == fid
+    for a, b in zip(_flatten(tr.state), before, strict=True):
+        assert torch.equal(a, b)
+    spans = sum(times[k] for k in PROBE_SPANS)
+    assert 0.85 <= spans / times["_frame_ms"] <= 1.15, times
+    staged, draws = tr.probe_inputs(ds[8])
+    progs = make_scan_probe(cfg, "cuda").programs(tr.state, staged, draws)
+    progs.build()
+    for name, call in zip(PROBE_SPANS, progs.spans):
+        dev_ms = _replay_device_ms(call, 4)
+        assert abs(times[name] - dev_ms) <= max(0.25 * dev_ms, 0.2), (
+            name, times[name], dev_ms)
+    progs.reset_frame()
+    dev_ms = _replay_device_ms(progs.frame, 4)
+    progs.close()
+    assert 0.95 <= times["_frame_ms"] / dev_ms <= 1.25, (
+        times["_frame_ms"], dev_ms)
+
+
 HOST_STAGES = ("_prepare", "_mask_prop", "_inherit", "_camera",
                "_scene_flow", "_objects", "_renew_static", "_renew_dynamic")
 
@@ -972,4 +1121,44 @@ def test_small_solves_capture(name, make):
         a.copy_(b)
     got = call().clone()
     assert call.graph is not None
+    torch.testing.assert_close(got, fn(), rtol=0, atol=0)
+
+
+def test_capture_survives_a_collectable_graph():
+    """A captured graph whose last reference, a reference cycle (as a
+    dropped tracker or probe leaves its graphs), is dropped while another
+    graph captures, and the collector then runs there as it may at any
+    allocation (here on demand, where it is enabled): the capture holds,
+    because captures run with the collector off.  A graph destroyed inside
+    a capture breaks it ("operation not permitted when stream is
+    capturing"), which is how one full chip_smoke run failed."""
+    import gc
+
+    from vdo_slam_tpu_torch.utils.cuda_graph import GraphedCall
+
+    x = torch.rand(1024, device="cuda")
+    bag = []
+
+    def fn():
+        if bag:
+            bag.pop()          # the old graph's cycle is garbage from here
+            if gc.isenabled():
+                gc.collect()   # the collector's automatic run
+        return (x + 1.0).sum()
+
+    class Holder:
+        pass
+
+    call = GraphedCall(fn, "cuda", "new")
+    call()                                           # the warm-up
+    old = Holder()
+    old.call = GraphedCall(lambda: (x * 2).sum(), "cuda", "old")
+    old.self = old                                   # a cycle
+    old.call()
+    old.call()                                       # captured
+    assert old.call.graph is not None
+    bag.append(old)
+    del old
+    got = call().clone()                             # captured, replayed
+    assert call.graph is not None and not bag and gc.isenabled()
     torch.testing.assert_close(got, fn(), rtol=0, atol=0)

@@ -4,7 +4,13 @@ tests/test_multistream.py:TestStageProbe on the same 320x240 scene and
 `small_config`, plus what the JAX test does not check: the probe leaves the
 tracker's state, frame counter, staged GT labels and next draws as they
 were, so the run continued after it equals the same run without it
-(atol = 0).  The span names are the JAX package's.
+(atol = 0).  The span names and the keys of the times are the JAX
+package's.  The probe's programs (ProbePrograms: on a card one CUDA graph
+per span, each captured over the previous span's outputs, and the frame
+program) run eagerly here on the same static buffers: the chain of spans
+ends in the packed step's output vector, and the frame program carries
+its own state as the tracker's step would, leaving the tracker's alone
+(atol = 0).
 """
 
 import numpy as np
@@ -60,7 +66,16 @@ def probed():
     plain.track_rgbd(ds[3])
     plain.tracker.flush()
     return {"sysm": sysm, "plain": plain, "times": times, "before": before,
-            "after": after}
+            "after": after, "ds": ds}
+
+
+def _programs(probed, n_iters=1):
+    """The probe's programs over the tracker's state with the last frame
+    as its next one, and the (staged inputs, draws) they copied."""
+    tr = probed["sysm"].tracker
+    staged, draws = tr.probe_inputs(probed["ds"][3])
+    probe = make_scan_probe(tr.cfg, "cpu", n_iters=n_iters)
+    return probe.programs(tr.state, staged, draws), staged, draws
 
 
 def test_span_names_are_the_jax_packages():
@@ -123,3 +138,49 @@ def test_probe_defaults_to_the_card(probed):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         make_scan_probe(probed["sysm"].cfg)
+
+
+def test_times_keep_the_jax_packages_keys(probed):
+    assert set(probed["times"]) == (set(jax_multistream.PROBE_SPANS)
+                                    | {"_frame_ms", "_rtt_ms"})
+    report = probed["sysm"].tracker.probe_report
+    assert report["seconds"] > 0
+    # no capture on the CPU: the programs ran eagerly
+    assert report["graphs"] == [] and report["pool_reserved_bytes"] == 0
+
+
+def test_span_chain_ends_in_the_packed_steps_vector(probed):
+    """The spans, each over the previous span's static outputs, end in
+    the output vector of the packed step on the same state, inputs and
+    draws; a second pass over the same buffers (a card's replays) too."""
+    progs, staged, draws = _programs(probed)
+    tr = probed["sysm"].tracker
+    _, want = tr._packed_step(tr.state, staged, draws.u, True)
+    got = progs.chain().clone()
+    assert torch.equal(got, want)
+    assert torch.equal(progs.chain(), want)
+    assert [c.name for c in progs.spans] == [f"probe span {k}"
+                                             for k in PROBE_SPANS]
+
+
+def test_frame_program_carries_its_state_not_the_trackers(probed):
+    """Three calls of the frame program from the tracker's state equal
+    three packed steps by hand, its state carried, output vectors and
+    final state bit-equal; the tracker's state stays as it was, and
+    reset_frame starts the program again from it."""
+    tr = probed["sysm"].tracker
+    before = [t.clone() for t in _flatten(tr.state)]
+    progs, staged, draws = _programs(probed)
+    progs.reset_frame()
+    vecs = [progs.frame().clone() for _ in range(3)]
+    st = tr.state
+    for vec in vecs:
+        st, want = tr._packed_step(st, staged, draws.u, True)
+        assert torch.equal(vec, want)
+    for a, b in zip(_flatten(progs.frame_state.tree), _flatten(st),
+                    strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(_flatten(tr.state), before, strict=True):
+        assert torch.equal(a, b)
+    progs.reset_frame()
+    assert torch.equal(progs.frame(), vecs[0])

@@ -14,12 +14,16 @@ With more than one device the edges are sharded over all of them
 (factor_graph.lm_solve_sharded_chunked), as the original shards them over
 `jax.devices()`; the devices are a list driven from this one process (the
 factor_graph module says why).  With one device the plain chunked solve
-runs, from CUDA graphs where the caller passes a `FullBAGraphs`: one
-graph of `lm_solve` per input shape and chunk length, as the original
-compiles one executable per shape (`warmup_full_ba` warms and captures
-them on a zero-weight graph of the configured caps, as the original
-compiles and first-executes its program).  The edge-sharded solve stays
-eager.
+runs.  Either runs from CUDA graphs where the caller passes a
+`FullBAGraphs` made for the same device list: one graph of the LM chunk
+(factor_graph._lm over the edge shards, `lm_solve` for one device) per
+input shape, shard count and chunk length, as the original compiles one
+executable per shape (`warmup_full_ba` warms and captures them on a
+zero-weight graph of the configured caps, as the original compiles and
+first-executes its program).  A list that names distinct cards gets no
+graphs (a capture would have to fork every other card's stream into the
+first one's, which has not been run on a machine with several cards):
+its sharded solve runs eagerly, and only there.
 """
 
 from __future__ import annotations
@@ -37,9 +41,9 @@ from ..devices import device_list
 from ..pipeline.map_state import MapState
 from ..utils.cuda_graph import GraphedCall, StaticTree, tree_flatten
 from .builders import build_full_graph, empty_full_graph
-from .factor_graph import (LMParams, Variables, _chunked, _lam, device_like,
-                           fetch, lm_solve, lm_solve_chunked,
-                           lm_solve_sharded_chunked, upload)
+from .factor_graph import (LMParams, Variables, _chunked, _lam, _lm,
+                           _shard_edges, device_like, fetch,
+                           lm_solve_chunked, lm_solve_sharded_chunked, upload)
 
 # LM iterations per chunk by default (BackendConfig.full_ba_chunk): the
 # gain test runs at chunk boundaries only (full_ba.py:25-34)
@@ -80,18 +84,45 @@ def scaled_lm_params(cfg: VDOConfig, n_obs: int,
     return dataclasses.replace(p, cg_iters=_scaled_cg(p.cg_iters, n_obs))
 
 
-class FullBAGraphs:
-    """The full BA's graphs on one device: one `lm_solve` graph per input
-    shape and chunk LMParams (the full chunk and the tail chunk of a
-    solve), made at a key's first chunk (which runs eagerly, as the
-    warm-up) and captured at its second.  The graphs of one shape read one
-    set of static inputs: the edge arrays, loaded once per solve, and the
-    variables and the damping, loaded for each chunk (the last chunk's
-    outputs, which the next replay overwrites).  A solve holds the
-    object's lock from its upload to its fetch."""
+def _card(d: torch.device) -> tuple:
+    """The card (or the CPU) a device names: "cuda" is the current card."""
+    if d.type == "cuda" and d.index is None:
+        return d.type, (torch.cuda.current_device()
+                        if torch.cuda.is_available() else 0)
+    return d.type, d.index
 
-    def __init__(self, device):
-        self.device = torch.device(device)
+
+def one_card(devices) -> bool:
+    """Whether a device list (devices.py:device_list) names one card or
+    the CPU only, however often."""
+    return len({_card(d) for d in devices}) == 1
+
+
+class FullBAGraphs:
+    """The full BA's graphs on a device list that names one card (or the
+    CPU), repeated or not: one graph of the LM chunk per input shape,
+    shard count and chunk LMParams (the full chunk and the tail chunk of a
+    solve), made at a key's first chunk (which runs eagerly, as the
+    warm-up) and captured at its second.  Over n > 1 devices the edges are
+    padded and sharded once per solve, on the host, into static buffers,
+    and the graph runs factor_graph._lm over the n shards, as
+    lm_solve_sharded_chunked does; over one, `lm_solve`.  The graphs of
+    one shape read one set of static inputs: the edge arrays, loaded once
+    per solve, and the variables and the damping, loaded for each chunk
+    (the last chunk's outputs, which the next replay overwrites).  A solve
+    holds the object's lock from its upload to its fetch.  A list that
+    names distinct cards raises ValueError: their sharded solve stays
+    eager (full_ba_inplace without graphs)."""
+
+    def __init__(self, devices):
+        self.devices = device_list(
+            devices if isinstance(devices, (list, tuple)) else [devices])
+        if not one_card(self.devices):
+            raise ValueError(
+                f"FullBAGraphs over {[str(d) for d in self.devices]}: "
+                f"distinct cards are not captured into one graph; call "
+                f"full_ba_inplace without graphs (the eager sharded solve)")
+        self.device = self.devices[0]
         self._inputs: dict = {}
         self._calls: dict = {}
         self._lock = threading.Lock()
@@ -99,12 +130,18 @@ class FullBAGraphs:
     @contextlib.contextmanager
     def solver(self, graph, v0, p: LMParams):
         """Load a builder's (graph, variables) into the static inputs of
-        their shape, the damping set to p.lambda_init (one transfer, on
-        torch's current stream); yields (v0, solve): v0 the variables'
-        static buffers, and solve(v, p_chunk, lam) -> (v, info) for
-        factor_graph._chunked, lm_solve from the graph of p_chunk, whose
-        outputs are valid until its next call or the block's end."""
-        g_like, v_like = device_like(graph, v0)
+        their shape, the edges sharded over the device list (one transfer,
+        on torch's current stream), the damping set to p.lambda_init;
+        yields (v0, solve): v0 the variables' static buffers, and solve(v,
+        p_chunk, lam) -> (v, info) for factor_graph._chunked, the LM chunk
+        from the graph of p_chunk, whose outputs are valid until its next
+        call or the block's end."""
+        n = len(self.devices)
+        # the shards as lm_solve_sharded_chunked makes them, on the host
+        shards = ([graph] if n == 1 else
+                  _shard_edges(upload(graph, v0, "cpu")[0], ["cpu"] * n))
+        g_like = [device_like(sh, v0)[0] for sh in shards]
+        v_like = device_like(graph, v0)[1]
         key = tuple((x.dtype, tuple(x.shape))
                     for x in tree_flatten((g_like, v_like))[0])
         with self._lock:
@@ -113,19 +150,20 @@ class FullBAGraphs:
                     StaticTree(g_like, self.device),
                     StaticTree((v_like, torch.empty(())), self.device))
             edges, state = self._inputs[key]
-            edges.load_host(graph)
+            edges.load_host(shards)
             state.load_host((v0, np.full((), p.lambda_init, np.float32)))
 
             def solve(v, pc: LMParams, lam):
                 state.load((v, lam))
                 if (key, pc) not in self._calls:
                     self._calls[key, pc] = GraphedCall(
-                        lambda: lm_solve(edges.tree, state.tree[0], pc,
-                                         lam0=state.tree[1]),
+                        lambda: _lm(list(edges.tree), state.tree[0], pc,
+                                    lam0=state.tree[1]),
                         self.device,
                         f"full BA F={v_like.poses.shape[0]} "
                         f"P={v_like.points.shape[0]} "
-                        f"E={g_like.obs_w.shape[0]} iters={pc.iters}")
+                        f"E={graph.obs_w.shape[0]} iters={pc.iters}"
+                        + (f" shards={n}" if n > 1 else ""))
                 return self._calls[key, pc]()
 
             yield state.tree[0], solve
@@ -147,9 +185,10 @@ def warmup_full_ba(cfg: VDOConfig, n_frames: int,
     """Warm and capture the full-BA graphs on a zero-weight graph with the
     exact shapes full_ba_inplace will use for an n_frames archive
     (vdo_slam_tpu/backend/full_ba.py:73-88 compiles and first-executes the
-    program): each chunk length of the solve is solved twice, eagerly and
-    then from its new graph, with the LMParams of the real solve (the CG
-    budget scaled by the padded observation count), so that the real solve
+    program), sharded over the graphs' device list as the real solve is:
+    each chunk length of the solve is solved twice, eagerly and then from
+    its new graph, with the LMParams of the real solve (the CG budget
+    scaled by the padded observation count), so that the real solve
     replays them.  Raises ValueError if the full_* caps are unset."""
     g, v = empty_full_graph(cfg, n_frames)
     p = scaled_lm_params(cfg, g.obs_w.shape[0])
@@ -161,15 +200,28 @@ def warmup_full_ba(cfg: VDOConfig, n_frames: int,
                 fetch(info["cost"])     # waits for the solve
 
 
+def graphs_for(device="cuda", devices=None) -> FullBAGraphs | None:
+    """A FullBAGraphs for full_ba_inplace(device=device, devices=devices):
+    over the device list that call solves on, or None where that list
+    names distinct cards (its sharded solve runs eagerly)."""
+    devices = device_list(devices, device)
+    return FullBAGraphs(devices) if one_card(devices) else None
+
+
 def full_ba_inplace(m: MapState, cfg: VDOConfig, iters: int | None = None,
                     device="cuda", devices=None,
                     graphs: FullBAGraphs | None = None) -> dict:
     """The full-batch solve of the map `m`, written back in place; returns
     its report.  `devices` (devices.py:device_list; None takes every
     visible card when `device` is CUDA): more than one shards the edges
-    over them (eagerly), one runs the single-device solve on it, each
-    chunk from `graphs` where given."""
+    over them, one runs the single-device solve on it.  Each chunk runs
+    from `graphs` where given, which must be made for this device list
+    (`graphs_for`; ValueError otherwise); without, eagerly."""
     devices = device_list(devices, device)
+    if graphs is not None and [_card(d) for d in graphs.devices] != [
+            _card(d) for d in devices]:
+        raise ValueError(f"graphs for {[str(d) for d in graphs.devices]}, "
+                         f"a solve over {[str(d) for d in devices]}")
     t0 = time.perf_counter()
     graph_host, v0, meta = build_full_graph(m, cfg)
     p = scaled_lm_params(cfg, graph_host.obs_w.shape[0], iters)
@@ -182,17 +234,18 @@ def full_ba_inplace(m: MapState, cfg: VDOConfig, iters: int | None = None,
     with contextlib.ExitStack() as held:
         # one copy for all chunks; the sharded solve pads and shards it
         # once; the graphs hold their lock until the fetch
-        if graphs is not None and len(devices) == 1:
+        if graphs is not None:
             v0, solve = held.enter_context(graphs.solver(graph_host, v0, p))
         else:
             graph, v0 = upload(graph_host, v0, devices[0])
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if len(devices) > 1:
+        if graphs is not None:
+            v, info = _chunked(solve, v0, p, chunk, mark)
+        elif len(devices) > 1:
+            # eager: no graphs passed, as over distinct cards
             v, info = lm_solve_sharded_chunked(graph, v0, p, devices,
                                                chunk=chunk, callback=mark)
-        elif graphs is not None:
-            v, info = _chunked(solve, v0, p, chunk, mark)
         else:
             v, info = lm_solve_chunked(graph, v0, p, chunk=chunk,
                                        callback=mark)

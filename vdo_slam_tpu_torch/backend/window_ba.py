@@ -9,13 +9,16 @@ every WINDOW_SIZE - OVERLAP_SIZE archived frames (Tracking.cc:1168-1183).
 
 The solve runs as the JAX package's compiled window solve runs: each
 window shape (one per builders.WINDOW_TIERS entry at the configured
-window) and LM setting gets ONE CUDA graph of `lm_solve_schur`
-(`WindowGraphs`, utils/cuda_graph.py), into whose static buffers the host
-graph is copied in one transfer, and which is replayed on the caller's
-stream; the results are fetched in one copy before the graph is free for
-the next solve.  `warmup_window_ba` warms and captures every tier before
-tracking starts, as the original compiles and first-executes them.  The
-solver "lm" (matrix-free PCG) stays eager.
+window), solver and LM setting gets ONE CUDA graph (`WindowGraphs`,
+utils/cuda_graph.py) of `lm_solve_schur` (solver "schur", the dense-Schur
+direct solve every System uses) or `lm_solve` (solver "lm", matrix-free
+PCG), into whose static buffers the host graph is copied in one transfer,
+and which is replayed on the caller's stream; the results are fetched in
+one copy before the graph is free for the next solve.  `warmup_window_ba`
+warms and captures every "schur" tier before tracking starts, as the
+original compiles and first-executes them; an "lm" tier runs eagerly at
+its first solve and captures at its second, as `jax.jit` compiles at the
+first call.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from ..utils.cuda_graph import GraphedCall, StaticTree, tree_flatten
 from .builders import (WINDOW_TIERS, _np_inv, build_window_graph,
                        empty_window_graph)
 from .factor_graph import (LMParams, device_like, fetch, lm_solve,
-                           lm_solve_schur, upload)
+                           lm_solve_schur)
 
 
 def _lm_params(cfg: VDOConfig, iters: int | None = None) -> LMParams:
@@ -49,12 +52,23 @@ def _lm_params(cfg: VDOConfig, iters: int | None = None) -> LMParams:
     )
 
 
+# the window solvers, each (graph, variables, LMParams) -> (v, info): as in
+# the JAX package (window_ba.py:74), "schur" names the dense-Schur solve
+# and any other name ("lm", "pcg") the matrix-free LM
+SOLVERS = {"schur": lm_solve_schur, "lm": lm_solve}
+
+
+def _solver_name(solver: str) -> str:
+    return "schur" if solver == "schur" else "lm"
+
+
 class WindowGraphs:
-    """The window solves' graphs on one device: one `lm_solve_schur` graph
-    per window shape and LM setting, each with static input buffers, made
-    at a shape's first solve (which runs eagerly, as the warm-up) and
-    captured at its second.  One object serves every tracker that solves on
-    `device` (the streams of a MultiStreamSystem group share it): a solve
+    """The window solves' graphs on one device: one graph of a SOLVERS
+    entry per window shape, solver and LM setting, each with static input
+    buffers, made at a key's first solve (which runs eagerly, as the
+    warm-up) and captured at its second.  One object serves every tracker
+    that solves on `device` (the streams of a MultiStreamSystem group
+    share it): a solve
     holds its graph's lock from the upload to the fetch, so the solves of
     two trackers on one shape take turns, and no graph replays while it
     runs."""
@@ -64,27 +78,30 @@ class WindowGraphs:
         self._solves: dict = {}
         self._lock = threading.Lock()
 
-    def _entry(self, graph, v0, p: LMParams):
+    def _entry(self, graph, v0, p: LMParams, solver: str):
+        solver = _solver_name(solver)
+        fn = SOLVERS[solver]
         like = device_like(graph, v0)
         key = (tuple((x.dtype, tuple(x.shape))
-                     for x in tree_flatten(like)[0]), p)
+                     for x in tree_flatten(like)[0]), solver, p)
         with self._lock:
             if key not in self._solves:
                 inputs = StaticTree(like, self.device)
                 call = GraphedCall(
-                    lambda: lm_solve_schur(*inputs.tree, p), self.device,
+                    lambda: fn(*inputs.tree, p), self.device,
                     f"window solve P={v0.points.shape[0]} "
                     f"E={graph.obs_w.shape[0]} F={v0.poses.shape[0]} "
-                    f"iters={p.iters}")
+                    f"iters={p.iters}"
+                    + ("" if solver == "schur" else f" solver={solver}"))
                 self._solves[key] = (inputs, call)
             return self._solves[key]
 
     @contextlib.contextmanager
-    def solve(self, graph, v0, p: LMParams):
-        """Solve a builder's (graph, variables) on torch's current stream;
-        yields (variables, info) as lm_solve_schur returns them, valid
-        until the block ends."""
-        inputs, call = self._entry(graph, v0, p)
+    def solve(self, graph, v0, p: LMParams, solver: str = "schur"):
+        """Solve a builder's (graph, variables) with the solver named
+        `solver` (SOLVERS) on torch's current stream; yields (variables,
+        info) as the solver returns them, valid until the block ends."""
+        inputs, call = self._entry(graph, v0, p, solver)
         with call.lock:
             inputs.load_host((graph, v0))
             yield call()
@@ -119,22 +136,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-@contextlib.contextmanager
-def _eager_lm(graph, v0, p: LMParams, device):
-    yield lm_solve(*upload(graph, v0, device), p)
-
-
 def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
                      iters: int | None = None, solver: str = "schur",
                      n_frames: int | None = None, device="cuda",
                      graphs: WindowGraphs | None = None) -> dict:
     """n_frames pins the window end (see build_window_graph); write-back
     touches only frames < n_frames.  The solve's work goes to torch's
-    current stream of `device`; solver "schur" runs from `graphs` (the
-    caller's, shared by its solves; a WindowGraphs of this call's own if
-    None, whose one solve runs eagerly as its warm-up).  The report's
-    phases: host graph build, upload and dispatch of the solve, the wait
-    for that stream, the fetch of the results, and the write-back."""
+    current stream of `device`; the solver (SOLVERS: "schur", else "lm")
+    runs from `graphs` (the caller's, shared by its solves; a WindowGraphs
+    of this call's own if None, whose one solve runs eagerly as its
+    warm-up).  The report's phases: host graph build, upload and dispatch
+    of the solve, the wait for that stream, the fetch of the results, and
+    the write-back."""
     device = torch.device(device)
     t0 = time.perf_counter()
     graph, v0, meta = build_window_graph(m, cfg, window, n_frames=n_frames)
@@ -142,10 +155,7 @@ def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
     t1 = time.perf_counter()
     # static-only window: points couple only through obs edges, so the exact
     # dense-Schur direct solver applies
-    if solver == "schur":
-        solving = (graphs or WindowGraphs(device)).solve(graph, v0, p)
-    else:
-        solving = _eager_lm(graph, v0, p, device)
+    solving = (graphs or WindowGraphs(device)).solve(graph, v0, p, solver)
     with solving as (v, info):
         t2 = time.perf_counter()
         _sync(device)

@@ -406,8 +406,7 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     BA).  The stage probe runs after the timed region.  Returns the JSON
     record and the system."""
     from .backend.factor_graph import format_edge_stats
-    from .backend.full_ba import (FullBAGraphs, full_ba_inplace,
-                                  warmup_full_ba)
+    from .backend.full_ba import full_ba_inplace, graphs_for, warmup_full_ba
     from .parallel.multistream import PROBE_SPANS
     from .pipeline import System
 
@@ -434,12 +433,17 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     log(f"warmup {n_warm} frames: {time.perf_counter() - t0:.1f}s")
     log(f"window-BA graphs warmed and captured at construction: "
         f"{_capture_seconds([sysm.window_graphs]):.1f}s")
-    full_graphs = FullBAGraphs(sysm.tracker.device)
-    t0 = time.perf_counter()
-    warmup_full_ba(cfg, len(pds), full_graphs)
-    log(f"full-BA graphs warmed and captured: "
-        f"{time.perf_counter() - t0:.1f}s "
-        f"({_capture_seconds([full_graphs]):.1f}s of warm-up and capture)")
+    full_graphs = graphs_for(device)
+    if full_graphs is None:
+        log("full BA over distinct cards: no graphs, the sharded solve "
+            "runs eagerly")
+    else:
+        t0 = time.perf_counter()
+        warmup_full_ba(cfg, len(pds), full_graphs)
+        log(f"full-BA graphs warmed and captured: "
+            f"{time.perf_counter() - t0:.1f}s "
+            f"({_capture_seconds([full_graphs]):.1f}s of warm-up and "
+            f"capture)")
 
     n_timed = len(pds) - n_warm
     n_solves = len(sysm.map.lba_times)
@@ -470,7 +474,8 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
                               graphs=full_graphs)
     ba_elapsed = time.perf_counter() - t1
     log(f"full-batch BA: {ba_elapsed:.1f}s  (build "
-        f"{ba_info['t_build_s']:.3f}s, solve from its graphs "
+        f"{ba_info['t_build_s']:.3f}s, solve "
+        f"{'from its graphs ' if full_graphs else '(eager) '}"
         f"{ba_info['t_solve_s']:.3f}s, wb "
         f"{ba_info['t_writeback_s']:.3f}s, {ba_info['iters_run']} LM iters)"
         f"  cost {ba_info['cost0']:.4e} -> {ba_info['cost']:.4e}  (static "
@@ -505,7 +510,8 @@ def main(hard: bool = False, device="cuda", n_frames: int = N_FRAMES,
     log(f"stage timing (ms): {sysm.timing()}")
     rec = _record(metric_name(hard=hard), fps)
     return {"record": rec, "system": sysm, "full_ba": ba_info,
-            "full_ba_graphs": full_graphs.records(), "frames": len(pds),
+            "full_ba_graphs": (full_graphs.records() if full_graphs
+                               else []), "frames": len(pds),
             "window_solve_ms": solve_ms}
 
 

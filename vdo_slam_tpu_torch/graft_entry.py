@@ -217,12 +217,15 @@ def _full_ba_leg(devices) -> dict:
     """Leg (c): a 25-frame 256x192 3-object sequence tracked on the first
     device, its full dynamic graph built as full_ba_inplace builds it,
     solved on one device (lm_solve_chunked) and by full_ba_inplace with the
-    edges sharded over `devices`.  Returns the numbers the asserts read and
-    the tracked map (before either solve)."""
+    edges sharded over `devices`, from its CUDA graphs where `devices`
+    names one card (full_ba.graphs_for: a chunk length's first chunk runs
+    eagerly, its second captures), eagerly over distinct cards.  Returns
+    the numbers the asserts read, the tracked map (before either solve)
+    and the graphs (None over distinct cards)."""
     from .backend.builders import build_full_graph
     from .backend.factor_graph import lm_solve_chunked, upload
     from .backend.full_ba import (FULL_BA_CHUNK, full_ba_inplace,
-                                  scaled_lm_params)
+                                  graphs_for, scaled_lm_params)
     from .io.dataset import SyntheticDataset
     from .io.synthetic import make_scene
     from .pipeline import System
@@ -247,8 +250,9 @@ def _full_ba_leg(devices) -> dict:
     ref_poses = v_ref.poses.double().cpu().numpy()
 
     m = copy.deepcopy(sysm.map)
+    graphs = graphs_for(home, devices)
     info = full_ba_inplace(m, mcfg, iters=FULL_BA_ITERS, device=home,
-                           devices=devices)
+                           devices=devices, graphs=graphs)
     # full_ba_inplace writes the solve's pose variables straight into
     # cam_pose_rf, the convention of v_ref.poses
     sh_poses = np.stack([np.asarray(m.cam_pose_rf[f], np.float64)
@@ -260,7 +264,7 @@ def _full_ba_leg(devices) -> dict:
             "n_motions": int(info["n_motions"]), "n_dyn": int(info["n_dyn"]),
             "n_static_points": int(meta.n_static_points),
             "iters_run": info["iters_run"], "t_solve_s": info["t_solve_s"],
-            "config": mcfg, "map": sysm.map}
+            "config": mcfg, "map": sysm.map, "graphs": graphs}
 
 
 def dryrun_multichip(n_devices: int, devices=None) -> dict:

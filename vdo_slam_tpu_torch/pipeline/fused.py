@@ -55,7 +55,10 @@ ring.
 
 Every archived frame carries the reference's five stage times: zeros until
 `calibrate_stage_times` measures them, then the measured split, for the
-frames archived before it too.
+frames archived before it too.  On a card each is the device time per
+frame of its span of the graphed packed step, the host's dispatch netted
+out (parallel/multistream.py:make_scan_probe); on the CPU the host clock's
+time of the span.
 """
 
 from __future__ import annotations
@@ -188,6 +191,7 @@ class FusedTracker:
         # calibrate_stage_times() measures the split
         self._stage_ms = np.zeros(5, np.float32)
         self._probe_rtt_ms = 0.0
+        self.probe_report: dict | None = None
         self._pending = None
         self._pending_chunk = None
         self._pending_batch: list = []
@@ -325,22 +329,27 @@ class FusedTracker:
         """Measure the reference's 5-span stage split (Map.h:83-84,
         System.cc:204-237) on the fused path (JAX fused.py:248-287).
 
-        Runs the packed step's spans one after another on the tracker's
-        state with `fd` as the next frame, n_iters times per round, and
-        keeps the least of `rounds` rounds (parallel/multistream.py:
-        make_scan_probe has the method and what the times mean).  Returns
-        {span: ms for span in PROBE_SPANS}, "_frame_ms" (one whole packed
-        step plus pack_outputs) and "_rtt_ms" (an empty timed region).  The
-        five STAGE_SPANS, each clamped at 0, are archived with every frame,
-        past and future.  The probe changes nothing the run reads: the
-        state, the frame counter, the staging-order GT labels and the draws
-        of the next frame (its draws come from a generator of its own)."""
+        Captures each span of the packed step, and the frame program, as
+        a graph over a copy of the tracker's state with `fd` as the next
+        frame, replays each n_iters times per round, and keeps the least of
+        `rounds` rounds (parallel/multistream.py:make_scan_probe has the
+        method and what the times mean: on a card, device time per frame).
+        Returns {span: ms for span in PROBE_SPANS}, "_frame_ms" (the packed
+        step plus pack_outputs, its state carried) and "_rtt_ms" (the
+        baseline, an empty timed region).  The five STAGE_SPANS, each
+        clamped at 0, are archived with every frame, past and future;
+        `probe_report` keeps the probe's seconds, its graphs' records and
+        replays and its pool's bytes.  The probe changes nothing the run
+        reads: the state, the frame counter, the staging-order GT labels
+        and the draws of the next frame (its draws come from a generator
+        of its own)."""
         from ..parallel.multistream import STAGE_SPANS, make_scan_probe
 
         staged, draws = self.probe_inputs(fd)
         probe = make_scan_probe(self.cfg, self.device, n_iters=n_iters)
         times, rtt = probe(self._graph.state.tree, staged, draws,
                            rounds=rounds)
+        self.probe_report = probe.report
         self._stage_ms = np.asarray([max(times[k], 0.0) for k in STAGE_SPANS],
                                     np.float32)
         self._probe_rtt_ms = rtt

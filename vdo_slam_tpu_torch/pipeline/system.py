@@ -20,9 +20,11 @@ window solves, and keeps its report in `full_ba_report`.  On a card the
 window solves run from CUDA graphs (backend/window_ba.py:WindowGraphs),
 one per shape tier, warmed and captured when the System is made
 (`warmup_window_ba`), before tracking starts.  The full BA runs from the
-System's `full_graphs` (backend/full_ba.py:FullBAGraphs), which the System
-does not warm, as the JAX package's System does not: without the full_*
-caps the full graph's shapes vary from run to run, so a run's one full BA
+System's `full_graphs` (backend/full_ba.py:FullBAGraphs, over the device
+list the solve takes; None over distinct cards, whose sharded solve runs
+eagerly), which the System does not warm, as the JAX package's System
+does not: without the full_* caps the full graph's shapes vary from run
+to run, so a run's one full BA
 is its graphs' warm-up (a key's second chunk captures, later ones
 replay); a caller that knows the caps warms them first
 (`warmup_full_ba`, as the bench does).
@@ -64,7 +66,7 @@ class System:
         if not isinstance(cfg, VDOConfig):
             cfg = load_settings(cfg)
         # imported here: parallel/ and backend/ import pipeline/
-        from ..backend.full_ba import FullBAGraphs
+        from ..backend.full_ba import graphs_for
         from ..backend.window_ba import (WindowGraphs, local_ba_inplace,
                                          warmup_window_ba)
         from .fused import FusedTracker
@@ -78,7 +80,7 @@ class System:
         self.enable_global_ba = enable_global_ba
         self.full_ba_report: dict | None = None
         self.window_graphs: WindowGraphs | None = None
-        self.full_graphs = (FullBAGraphs(self.tracker.device)
+        self.full_graphs = (graphs_for(self.tracker.device)
                             if enable_global_ba else None)
         if enable_local_ba:
             dev = self.tracker.device

@@ -37,12 +37,15 @@ ops/fast_cuda.py counts it in `captured`, not in `launches`, and each
 replay adds the launches its capture recorded to `launches`.
 
 A capture or replay that fails raises.  Nothing falls back to eager
-execution.
+execution.  Python's garbage collector is off during a capture: a graph
+it collects there would be destroyed inside the capture, which CUDA
+refuses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import threading
 import time
 
@@ -271,20 +274,30 @@ class GraphedCall:
 
     `record` (after the capture) holds what a capture cost: seconds of the
     warm-up and of the capture, the bytes the graph's pool reserved, and
-    the launches of each hand-written kernel per replay.  `lock` is for
-    callers that share one graph between threads: a graph must never be
-    replayed while it runs, nor its outputs read after the next replay."""
+    the launches of each hand-written kernel per replay and in the
+    warm-up; `replays` counts the replays, the capture's own included.
+    `lock` is for callers that share one graph between threads: a graph
+    must never be replayed while it runs, nor its outputs read after the
+    next replay.
 
-    def __init__(self, fn, device, name: str):
+    `pool` (torch.cuda.graph_pool_handle()) puts the graph in a memory
+    pool that other graphs share; such graphs must be replayed in the
+    order they were captured, never at once (a later capture may reuse
+    what an earlier graph frees).  None: a pool of the graph's own."""
+
+    def __init__(self, fn, device, name: str, pool=None):
         self.fn = fn
         self.device = torch.device(device)
         self.name = name
+        self.pool = pool
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out = None
         self.warm_s: float | None = None
         self.record: dict | None = None
+        self.replays = 0
         self.lock = threading.Lock()
         self._kernel_launches: list = []
+        self._warm_launches: dict = {}
         self._static_out: StaticTree | None = None
 
     def __call__(self):
@@ -300,6 +313,7 @@ class GraphedCall:
             if self.graph is None:
                 self._capture()
             self.graph.replay()
+        self.replays += 1
         for kernel, n in self._kernel_launches:
             kernel.launches += n
         return self.out
@@ -310,10 +324,14 @@ class GraphedCall:
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
+        before = [k.launches for k in KERNELS]
         t0 = time.perf_counter()
         with torch.cuda.stream(side):
             out = self.fn()
         cur.wait_stream(side)
+        self._warm_launches = {type(k).__name__: k.launches - n
+                               for k, n in zip(KERNELS, before)
+                               if k.launches > n}
         for x in tree_flatten(out)[0]:
             x.record_stream(cur)
         self.warm_s = time.perf_counter() - t0
@@ -328,14 +346,24 @@ class GraphedCall:
             before = [k.captured for k in KERNELS]
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
-            with torch.cuda.stream(stream):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    out = self.fn()
-                finally:
-                    # ends the capture whatever fn did; an error fn raised
-                    # propagates, else one capture_end raises
-                    graph.capture_end()
+            # no garbage collection during the capture: a collected graph's
+            # destructor (cudaGraphExecDestroy) is not permitted while this
+            # thread captures, and invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(stream):
+                    graph.capture_begin(pool=self.pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        out = self.fn()
+                    finally:
+                        # ends the capture whatever fn did; an error fn
+                        # raised propagates, else one capture_end raises
+                        graph.capture_end()
+            finally:
+                if collecting:
+                    gc.enable()
             seconds = time.perf_counter() - t0
         self._kernel_launches = [(k, k.captured - n)
                                  for k, n in zip(KERNELS, before)
@@ -347,7 +375,8 @@ class GraphedCall:
             "pool_reserved_bytes":
                 torch.cuda.memory_reserved(self.device) - reserved,
             "kernel_launches_per_replay": {
-                type(k).__name__: n for k, n in self._kernel_launches}}
+                type(k).__name__: n for k, n in self._kernel_launches},
+            "kernel_launches_warm": self._warm_launches}
 
 
 class GraphedStage:
