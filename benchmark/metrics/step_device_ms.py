@@ -1,0 +1,13 @@
+"""The frame step's device time per frame: the summed duration of the
+kernels on the stream that ran the most of them (the tracker's step),
+clipped to the traced stretch of the window's one run_sequence call,
+divided by the frames the program fetched in that stretch."""
+
+
+def read(run):
+    tr = run.trace
+    if tr is None or not run.trace_frames:
+        return None
+    stream = tr.main_stream()
+    ns = sum(e - s for _, s, e, st in tr.kernels() if st == stream)
+    return ns / 1e6 / run.trace_frames if ns else None
