@@ -1162,3 +1162,24 @@ def test_capture_survives_a_collectable_graph():
     got = call().clone()                             # captured, replayed
     assert call.graph is not None and not bag and gc.isenabled()
     torch.testing.assert_close(got, fn(), rtol=0, atol=0)
+
+
+def test_graph_setup_spans_are_its_record():
+    """With the span recorder on, a GraphedCall's warm-up and capture are
+    `setup.warm` and `setup.capture` spans named by the graph, of the same
+    clock reads as its record's seconds, and its replays record none."""
+    from vdo_slam_tpu_torch.utils import profiling
+    from vdo_slam_tpu_torch.utils.cuda_graph import GraphedCall
+
+    x = torch.rand(1024, device="cuda")
+    call = GraphedCall(lambda: (x * 3).sum(), "cuda", "triple")
+    with profiling.recording() as rec:
+        for _ in range(4):
+            call()
+    torch.cuda.synchronize()
+    assert [s.name for s in rec.spans] == ["setup.warm", "setup.capture"]
+    warm, cap = rec.spans
+    assert warm.unit == cap.unit == "triple"
+    assert call.record["warm_s"] == warm.wall_ns / 1e9
+    assert call.record["capture_s"] == cap.wall_ns / 1e9
+    assert warm.end_ns <= cap.start_ns

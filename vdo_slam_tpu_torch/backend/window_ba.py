@@ -32,6 +32,7 @@ import torch
 
 from ..config import VDOConfig
 from ..pipeline.map_state import MapState
+from ..utils import profiling
 from ..utils.cuda_graph import GraphedCall, StaticTree, tree_flatten
 from .builders import (WINDOW_TIERS, _np_inv, build_window_graph,
                        empty_window_graph)
@@ -147,25 +148,32 @@ def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
     of this call's own if None, whose one solve runs eagerly as its
     warm-up).  The report's phases: host graph build, upload and dispatch
     of the solve, the wait for that stream, the fetch of the results, and
-    the write-back."""
+    the write-back; while a recorder is on (utils/profiling.py) each is
+    also a span of the same clock reads, `window.build` (with the
+    thread's CPU time) .. `window.writeback`, a child of the span open on
+    the calling thread (the solve thread's `window.solve`)."""
     device = torch.device(device)
-    t0 = time.perf_counter()
+    rec = profiling.ACTIVE
+    end = m.num_frames if n_frames is None else n_frames   # the spans' unit
+    t0 = time.time_ns()
+    cpu0 = time.thread_time_ns() if rec is not None else 0
     graph, v0, meta = build_window_graph(m, cfg, window, n_frames=n_frames)
     p = _lm_params(cfg, iters)
-    t1 = time.perf_counter()
+    cpu1 = time.thread_time_ns() if rec is not None else 0
+    t1 = time.time_ns()
     # static-only window: points couple only through obs edges, so the exact
     # dense-Schur direct solver applies
     solving = (graphs or WindowGraphs(device)).solve(graph, v0, p, solver)
     with solving as (v, info):
-        t2 = time.perf_counter()
+        t2 = time.time_ns()
         _sync(device)
-        t2b = time.perf_counter()
+        t2b = time.time_ns()
         # ONE device-to-host copy for everything the write-back and report
         # need, made before the graph may run the next solve
         poses, points, cost0, cost, stats0, stats = fetch(
             (v.poses, v.points, info["cost0"], info["cost"], info["stats0"],
              info["stats"]))
-    t3 = time.perf_counter()
+    t3 = time.time_ns()
 
     # write back refined camera poses and recomputed camera motions
     # (Optimizer.cc:1055-1082): vmCameraPose in place, motion = inv(P_a) P_b
@@ -185,7 +193,13 @@ def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
     for f in np.unique(s_frm):
         sel = s_frm == f
         m.stat_3d[f][s_fea[sel]] = points[s_pid[sel]]
-    t4 = time.perf_counter()
+    t4 = time.time_ns()
+    if rec is not None:
+        rec.add("window.build", t0, t1, end, cpu_ns=cpu1 - cpu0)
+        rec.add("window.dispatch", t1, t2, end)
+        rec.add("window.exec_wait", t2, t2b, end)
+        rec.add("window.fetch", t2b, t3, end)
+        rec.add("window.writeback", t3, t4, end)
     # per-edge-type chi2 + inlier breakdown (Optimizer.cc:640-970 analog)
     return {
         "cost0": float(cost0),
@@ -195,9 +209,9 @@ def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
         "n_tracks_dropped": meta.n_tracks_dropped,
         "edge_stats0": stats0,
         "edge_stats": stats,
-        "t_build_ms": (t1 - t0) * 1e3,
-        "t_dispatch_ms": (t2 - t1) * 1e3,
-        "t_exec_ms": (t2b - t2) * 1e3,
-        "t_fetch_ms": (t3 - t2b) * 1e3,
-        "t_writeback_ms": (t4 - t3) * 1e3,
+        "t_build_ms": (t1 - t0) / 1e6,
+        "t_dispatch_ms": (t2 - t1) / 1e6,
+        "t_exec_ms": (t2b - t2) / 1e6,
+        "t_fetch_ms": (t3 - t2b) / 1e6,
+        "t_writeback_ms": (t4 - t3) / 1e6,
     }

@@ -116,7 +116,7 @@ class FastScoreKernel:
         """Compile (if the library for this source is missing) and load."""
         if self._fn is not None:
             return self._fn
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         lib_path = self.library_path()
         if not lib_path.exists():
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -146,7 +146,13 @@ class FastScoreKernel:
         fn.restype = ctypes.c_int
         self._lib = lib
         self._fn = fn
-        self.build_seconds = time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.build_seconds = (t1 - t0) / 1e9
+        # imported here: utils/ imports this module
+        from ..utils import profiling
+        rec = profiling.ACTIVE
+        if rec is not None:
+            rec.add("setup.fast_build", t0, t1, "fast_score")
         return fn
 
     def launch(self, levels: list[Tensor], th_ini: float, th_min: float):

@@ -77,6 +77,7 @@ from ..devices import on_device
 from ..io.dataset import FrameData
 from ..io.packing import pack_frame, wire_kwargs
 from ..parallel.multistream import make_frame_step, make_stream_state
+from ..utils import profiling
 from ..utils.cuda_graph import StepGraph
 from . import draws as draws_mod
 from .map_state import MapState
@@ -203,6 +204,8 @@ class FusedTracker:
         self._ba_thread: threading.Thread | None = None
         self._ba_queue: list[int] = []
         self._ba_lock = threading.Lock()
+        # while a recorder is on: when each queued window end was queued
+        self._ba_queued_ns: dict[int, int] = {}
         self.ba_failures = 0  # background window solves that raised
         # per-solve reports (cost0 / cost, points, edge stats, phase ms);
         # one stderr line is logged per solve
@@ -284,26 +287,29 @@ class FusedTracker:
         """Stage a frame on the device: ONE packed int16 transfer plus its
         GT pose and labels; callable ahead of time, so the upload queues
         behind the previous frame's step."""
-        T_cw_gt = self._gt_pose(fd.pose_gt_raw)
-        return {
-            "packed": self._put(self.wire(fd), np.int16),
-            "T_cw_gt": self._put(T_cw_gt, np.float32),
-            "gt_sems": self._put(self._stage_gt_sems(fd), np.int32),
-            "_T_cw_gt_host": T_cw_gt,
-        }
+        with profiling.span("fused.stage", self.frame_id, cpu=True):
+            T_cw_gt = self._gt_pose(fd.pose_gt_raw)
+            return {
+                "packed": self._put(self.wire(fd), np.int16),
+                "T_cw_gt": self._put(T_cw_gt, np.float32),
+                "gt_sems": self._put(self._stage_gt_sems(fd), np.int32),
+                "_T_cw_gt_host": T_cw_gt,
+            }
 
     def device_inputs_chunk(self, fds) -> dict:
         """Stage a CHUNK of frames on the device in one (C, wire_len)
         transfer."""
-        gts = [self._gt_pose(fd.pose_gt_raw) for fd in fds]
-        sems = [self._stage_gt_sems(fd) for fd in fds]
-        return {
-            "packed": self._put(np.stack([self.wire(fd) for fd in fds]),
-                                np.int16),
-            "T_cw_gt": self._put(np.stack(gts), np.float32),
-            "gt_sems": self._put(np.stack(sems), np.int32),
-            "_T_cw_gt_host": gts,
-        }
+        with profiling.span("fused.stage", self.frame_id, n=len(fds),
+                            cpu=True):
+            gts = [self._gt_pose(fd.pose_gt_raw) for fd in fds]
+            sems = [self._stage_gt_sems(fd) for fd in fds]
+            return {
+                "packed": self._put(np.stack([self.wire(fd) for fd in fds]),
+                                    np.int16),
+                "T_cw_gt": self._put(np.stack(gts), np.float32),
+                "gt_sems": self._put(np.stack(sems), np.int32),
+                "_T_cw_gt_host": gts,
+            }
 
     def frame_draws(self, frame_id: int) -> dict:
         """The uniform draws of frame `frame_id` (pipeline/draws.py)."""
@@ -381,7 +387,9 @@ class FusedTracker:
         inputs = dict(staged) if staged is not None \
             else self.device_inputs(fd)
         T_cw_gt = inputs.pop("_T_cw_gt_host")
-        host, done = self._to_host(self._step_frame(inputs, self.frame_id))
+        with profiling.span("fused.dispatch", self.frame_id):
+            host, done = self._to_host(self._step_frame(inputs,
+                                                        self.frame_id))
         rep_prev = self._drain_pending()
         self._pending = (fd, T_cw_gt, self.frame_id, host, done, t0)
         self.frame_id += 1
@@ -435,8 +443,9 @@ class FusedTracker:
         inputs = dict(staged) if staged is not None \
             else self.device_inputs_chunk(fds)
         gts = inputs.pop("_T_cw_gt_host")
-        vecs = self._step_chunk(inputs, self.frame_id)
-        host, done = self._to_host(vecs)   # one (C, n) copy
+        with profiling.span("fused.dispatch", self.frame_id, n=self.chunk):
+            vecs = self._step_chunk(inputs, self.frame_id)
+            host, done = self._to_host(vecs)   # one (C, n) copy
         if self._pending_chunk is not None:
             self._pending_batch.append(self._pending_chunk)
             self._pending_chunk = None
@@ -454,21 +463,26 @@ class FusedTracker:
             return None
         fd, T_cw_gt, fid, host, done, t0 = self._pending
         self._pending = None
-        if done is not None:
-            done.synchronize()
-        return self._finish_frame(fd, T_cw_gt, fid, host.numpy(), t0)
+        with profiling.span("fused.drain_wait", fid):
+            if done is not None:
+                done.synchronize()
+        with profiling.span("fused.archive", fid, cpu=True):
+            return self._finish_frame(fd, T_cw_gt, fid, host.numpy(), t0)
 
     def _drain_batch_now(self, batch) -> list[dict]:
         """Archive a batch of chunks in frame order.  Their copies were
         queued in order on one stream, so the last one's event covers all."""
-        if batch[-1][4] is not None:
-            batch[-1][4].synchronize()
+        first, frames = batch[0][2], sum(b[6] for b in batch)
+        with profiling.span("fused.drain_wait", first, n=frames):
+            if batch[-1][4] is not None:
+                batch[-1][4].synchronize()
         reps = []
-        for fds, gts, fid0, host, _, t0, n_real in batch:
-            vecs_np = host.numpy()
-            reps.extend(self._finish_frame(fds[c], gts[c], fid0 + c,
-                                           vecs_np[c], t0)
-                        for c in range(n_real))
+        with profiling.span("fused.archive", first, n=frames, cpu=True):
+            for fds, gts, fid0, host, _, t0, n_real in batch:
+                vecs_np = host.numpy()
+                reps.extend(self._finish_frame(fds[c], gts[c], fid0 + c,
+                                               vecs_np[c], t0)
+                            for c in range(n_real))
         return reps
 
     def _drain_pending_chunk(self) -> list[dict]:
@@ -518,7 +532,10 @@ class FusedTracker:
 
     def _queue_ba(self, n_frames: int) -> None:
         """Queue the window solve ending at archive length n_frames and
-        launch it if no solve is in flight; never waits for a solve."""
+        launch it if no solve is in flight; never waits for a solve.  While
+        a recorder is on, the solve's `window.queued` span starts here."""
+        if profiling.ACTIVE is not None:
+            self._ba_queued_ns[n_frames] = time.time_ns()
         with self._ba_lock:
             self._ba_queue.append(n_frames)
         self._maybe_launch_ba()
@@ -532,11 +549,22 @@ class FusedTracker:
             yield
 
     def _run_ba(self, n_frames: int):
-        t5 = time.perf_counter()
+        """One window solve on the solve thread.  Its `lba_times` entry,
+        its stderr line and its `window.solve` span take the same clock
+        reads."""
+        rec = profiling.ACTIVE
+        t5 = time.time_ns()
+        queued = self._ba_queued_ns.pop(n_frames, None)
+        if rec is not None:
+            if queued is not None:
+                rec.add("window.queued", queued, t5, n_frames)
+            solve = rec.begin("window.solve", n_frames, start_ns=t5)
+        t6 = None
         try:
             with self.ba_context():
                 health = self.local_ba_hook(self.map, n_frames)
-            ms = (time.perf_counter() - t5) * 1e3
+            t6 = time.time_ns()
+            ms = (t6 - t5) / 1e6
             self.map.lba_times.append(ms)
             if isinstance(health, dict):
                 self.ba_health.append(health)
@@ -560,10 +588,18 @@ class FusedTracker:
             traceback.print_exc()
             self.ba_failures += 1
         finally:
-            # hand the thread slot over and launch the next queued window
-            with self._ba_lock:
-                self._ba_thread = None
-            self._maybe_launch_ba()
+            # the span is recorded before the slot is handed over, so
+            # flush() returns with every solve's span; a fault of the
+            # recorder still hands the slot over, or flush() would wait on
+            # it for ever
+            try:
+                if rec is not None:
+                    rec.end(solve, end_ns=t6)
+            finally:
+                # hand the thread slot over and launch the next queued window
+                with self._ba_lock:
+                    self._ba_thread = None
+                self._maybe_launch_ba()
 
     def _maybe_launch_ba(self):
         """Launch the next queued window solve iff none is in flight: the

@@ -39,6 +39,7 @@ from ..config import VDOConfig, load_settings
 from ..eval import results as results_mod
 from ..io.dataset import FrameData
 from ..io.prefetch import ThreadedPrefetcher
+from ..utils import profiling
 from .map_state import MapState
 from .tracking import Tracker
 
@@ -173,12 +174,18 @@ class System:
         """The chunked drive (system.py:85-141)."""
         tracker = self.tracker
         C = tracker.chunk
-        fds = list(itertools.islice(it, C))
+
+        def take():
+            # waiting on the prefetcher for the next chunk
+            with profiling.span("drive.input_wait", tracker.frame_id, n=C):
+                return list(itertools.islice(it, C))
+
+        fds = take()
         staged = tracker.device_inputs_chunk(fds)
         while staged is not None:
             reps = tracker.grab_chunk(fds, staged)
             # the next chunk's upload queues behind the steps just queued
-            fds = list(itertools.islice(it, C))
+            fds = take()
             staged = (tracker.device_inputs_chunk(fds) if len(fds) == C
                       else None)
             for rep in reps:
@@ -194,11 +201,17 @@ class System:
     def _drive_frames(self, it, n: int, show) -> None:
         """The staged single-frame drive (system.py:155-192)."""
         tracker = self.tracker
-        fd = next(it)
+
+        def take():
+            # waiting on the prefetcher for the next frame
+            with profiling.span("drive.input_wait", tracker.frame_id):
+                return next(it, None)
+
+        fd = take()
         staged = tracker.device_inputs(fd)
         for _ in range(n):
             rep = tracker.grab_frame(fd, staged)
-            fd = next(it, None)
+            fd = take()
             staged = tracker.device_inputs(fd) if fd is not None else None
             show(rep)
 

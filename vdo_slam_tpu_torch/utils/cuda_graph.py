@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..ops.fast_cuda import KERNEL
+from . import profiling
 
 Tensor = torch.Tensor
 
@@ -325,7 +326,7 @@ class GraphedCall:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         before = [k.launches for k in KERNELS]
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         with torch.cuda.stream(side):
             out = self.fn()
         cur.wait_stream(side)
@@ -334,7 +335,11 @@ class GraphedCall:
                                if k.launches > n}
         for x in tree_flatten(out)[0]:
             x.record_stream(cur)
-        self.warm_s = time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.warm_s = (t1 - t0) / 1e9
+        rec = profiling.ACTIVE
+        if rec is not None:
+            rec.add("setup.warm", t0, t1, self.name)
         return out
 
     def _capture(self) -> None:
@@ -345,7 +350,7 @@ class GraphedCall:
             graph = torch.cuda.CUDAGraph()
             before = [k.captured for k in KERNELS]
             reserved = torch.cuda.memory_reserved(self.device)
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             # no garbage collection during the capture: a collected graph's
             # destructor (cudaGraphExecDestroy) is not permitted while this
             # thread captures, and invalidates the capture
@@ -364,19 +369,22 @@ class GraphedCall:
             finally:
                 if collecting:
                     gc.enable()
-            seconds = time.perf_counter() - t0
+            t1 = time.time_ns()
         self._kernel_launches = [(k, k.captured - n)
                                  for k, n in zip(KERNELS, before)
                                  if k.captured > n]
         self.graph, self.out = graph, out
         self.record = {
             "name": self.name, "device": str(self.device),
-            "warm_s": self.warm_s, "capture_s": seconds,
+            "warm_s": self.warm_s, "capture_s": (t1 - t0) / 1e9,
             "pool_reserved_bytes":
                 torch.cuda.memory_reserved(self.device) - reserved,
             "kernel_launches_per_replay": {
                 type(k).__name__: n for k, n in self._kernel_launches},
             "kernel_launches_warm": self._warm_launches}
+        rec = profiling.ACTIVE
+        if rec is not None:
+            rec.add("setup.capture", t0, t1, self.name)
 
 
 class GraphedStage:
