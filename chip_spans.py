@@ -28,6 +28,10 @@ the recorder on from before the System is made, then from the records:
   fetch, write-back;
 - the nine host metrics these spans give (each over the same frames or
   solves);
+- flush()'s end-of-call join: the solves that ended after the window
+  call's last archive, and how long after;
+- the archive frames each window solve's build read (its report's
+  `build_frames`), against min(N, W + 1) for a window of W ending at N;
 - with --trace 1, the breakdown's ten longest idle gaps, each named by the
   innermost tracking-thread span open at its start, the solve thread's
   span open then (or "solve idle"), and the runtime call as the benchmark
@@ -167,6 +171,27 @@ def host_metrics(spans, thread: str, lo: int, hi: int) -> dict:
     }
 
 
+def join_account(spans, last_ns: int) -> dict:
+    """flush()'s join at the end of a call whose last archive ends at
+    last_ns: the solves that ended after it, and the ms to the last one."""
+    ends = [s.end_ns for s in spans if s.name == "window.solve"
+            and s.end_ns > last_ns]
+    return {"join_solves": len(ends),
+            "join_ms": (max(ends) - last_ns) / 1e6 if ends else 0.0}
+
+
+def build_frames_check(solves) -> dict:
+    """`solves`: (window end N, window W, the report's build_frames) per
+    window solve.  Whether every build read min(N, W + 1) frames; None
+    where no report holds the count."""
+    read = [b for _, _, b in solves]
+    ok = (None if not solves or None in read else
+          all(b == min(n, w + 1) for n, w, b in solves))
+    return {"solves": len(solves),
+            "build_frames": sorted({b for b in read if b is not None}),
+            "build_frames_ok": ok}
+
+
 def open_at(spans, thread_pred, t_ns: int):
     """The innermost span of a thread that `thread_pred` accepts open at
     t_ns, or None."""
@@ -286,11 +311,19 @@ def drive(seed: int, seconds: int, trace: bool) -> dict:
     from benchmark import loads
     from benchmark import run as brun
     from benchmark.trace import breakdown
+    from vdo_slam_tpu_torch.backend import window_ba
     from vdo_slam_tpu_torch.utils import profiling
 
     t_start = time.perf_counter()
     kept = {}
     kind, base = loads.KINDS["drive"], loads.WindowTrace
+    solve_fn, solves = window_ba.local_ba_inplace, []
+
+    def counted(m, *a, n_frames=None, **k):
+        rep = solve_fn(m, *a, n_frames=n_frames, **k)
+        solves.append((m.num_frames if n_frames is None else n_frames,
+                       rep["window"], rep.get("build_frames")))
+        return rep
 
     def keep(*a, **k):
         kept["run"] = kind(*a, **k)
@@ -308,12 +341,14 @@ def drive(seed: int, seconds: int, trace: bool) -> dict:
             super().__init__(*a, on_start=noted, **k)
 
     loads.KINDS["drive"], loads.WindowTrace = keep, Noted
+    window_ba.local_ba_inplace = counted    # System imports it when made
     try:
         with profiling.recording() as rec:
             result, lines = brun.run_cell("kitti-drive", seed, seconds,
                                           trace, "cuda", t_start)
     finally:
         loads.KINDS["drive"], loads.WindowTrace = kind, base
+        window_ba.local_ba_inplace = solve_fn
     for line in lines:
         log(line)
     print(json.dumps(result), flush=True)
@@ -335,6 +370,10 @@ def drive(seed: int, seconds: int, trace: bool) -> dict:
     out["tracking"] = tracking_account(spans, thread, lo, hi)
     out["solve"] = solve_account(spans, lo, hi)
     out["host_metrics"] = host_metrics(spans, thread, lo, hi)
+    # the call's last archive is flush()'s, just before it joins the solves
+    out["join"] = join_account(spans, max(s.end_ns for s in window
+                                          if s.name == "fused.archive"))
+    out["builds"] = build_frames_check(solves)
     n_win = sum(1 for s in spans if lo <= s.start_ns and s.end_ns <= hi)
     out["spans_per_frame"] = n_win / max(out["tracking"].get("frames", 0), 1)
     if trace and run.trace is not None:

@@ -166,3 +166,22 @@ def test_a_gap_with_no_solve_running_is_solve_idle():
     assert [g[0] for g in chip_spans.labelled_gaps(tr, [], MAIN)] == [
         "- | solve idle | in cudaEventSynchronize",
         "- | solve idle | after cudaMemcpyAsync"]
+
+
+def test_join_counts_the_solves_that_end_after_the_last_archive():
+    # the archive ends at 58 ms: the solves ending at 90 and 130 ms remain
+    assert chip_spans.join_account(_spans(), 58 * M) == {
+        "join_solves": 2, "join_ms": 72.0}
+    assert chip_spans.join_account(_spans(), 130 * M) == {
+        "join_solves": 0, "join_ms": 0.0}
+
+
+@pytest.mark.parametrize("solves, ok", [
+    ([(20, 20, 20), (36, 20, 21), (52, 20, 21)], True),
+    ([(20, 20, 20), (36, 20, 36)], False),      # a whole-archive read
+    ([(20, 20, None), (36, 20, None)], None),   # no count in the report
+    ([], None)])
+def test_build_frames_check(solves, ok):
+    out = chip_spans.build_frames_check(solves)
+    assert out["solves"] == len(solves) and out["build_frames_ok"] is ok
+    assert out["build_frames"] == sorted({b for *_, b in solves} - {None})

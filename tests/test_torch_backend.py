@@ -96,13 +96,26 @@ def _same_meta(a, b):
             assert x == y, f.name
 
 
+def _same_stat_obs(a, b):
+    """The write-back's (frames, feats, pids), dtypes included."""
+    assert len(a.stat_obs) == len(b.stat_obs) == 3
+    for u, w in zip(a.stat_obs, b.stat_obs):
+        assert u.dtype == w.dtype
+        np.testing.assert_array_equal(u, w, err_msg="stat_obs")
+
+
 GRAPH = [f.name for f in dataclasses.fields(jbuilders.Graph)]
 VARS = ("poses", "motions", "points")
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(window=6),
-                                dict(window=6, n_frames=7)],
-                         ids=["default", "window6", "window6_pinned"])
+                                dict(window=6, n_frames=7),
+                                dict(window=5, n_frames=7),
+                                dict(window=4, n_frames=7),
+                                dict(window=3, n_frames=7)],
+                         ids=["default", "window6", "window6_pinned",
+                              "window5_start2", "window4_start3",
+                              "window3_start4"])
 def test_build_window_graph_identical(session, kw):
     jm, jcfg, pcfg = session
     gj, vj, mj = jbuilders.build_window_graph(jm, jcfg, **kw)
@@ -110,6 +123,7 @@ def test_build_window_graph_identical(session, kw):
     _same_arrays(gp, gj, GRAPH)
     _same_arrays(vp, vj, VARS)
     _same_meta(mp, mj)
+    _same_stat_obs(mp, mj)
     assert mp.n_static_points > 20
 
 
@@ -176,6 +190,7 @@ def test_local_ba_inplace_agrees(session):
     _reports_close(ip, ij)
     for k in ("n_points", "window", "n_tracks_dropped"):
         assert ip[k] == ij[k]
+    assert ip["build_frames"] == min(jm.num_frames, 6 + 1)
     for k in ("t_build_ms", "t_dispatch_ms", "t_exec_ms", "t_fetch_ms",
               "t_writeback_ms"):
         assert ip[k] >= 0.0

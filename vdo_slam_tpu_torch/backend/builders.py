@@ -1,6 +1,8 @@
 """Copy of vdo_slam_tpu/backend/builders.py without JAX: the same numpy
 graph assembly, the same shapes and the same arrays (tests/
-test_torch_backend.py holds them equal at atol=0).  Graph and Variables are
+test_torch_backend.py holds them equal at atol=0), but for the window
+build, which reads only the window's frames of the archive and gives the
+original's arrays from them.  Graph and Variables are
 the port's (backend/factor_graph.py), filled with numpy arrays; the solver
 entries upload them to the device in one copy.  The fixed shapes that the
 original's compiled executables need are what the port's CUDA graphs need:
@@ -67,6 +69,7 @@ class GraphMeta:
     n_motions: int
     n_tracks_dropped: int = 0     # tracklets over P_CAP/E_CAP (window only)
     stat_obs: tuple | None = None  # full: (frames, feats, pids) arrays
+    build_frames: int | None = None  # window: archive frames the build read
 
 
 def _pad_graph(parts: dict, n_pose: int, n_mot: int, bucket: int,
@@ -161,18 +164,30 @@ def build_window_graph(m: MapState, cfg: VDOConfig, window: int | None = None,
 
     n_frames pins the window end to a specific archive length so the build
     can run on a background thread while the tracker keeps appending frames
-    (appends never disturb indices < n_frames)."""
+    (appends never disturb indices < n_frames).
+
+    Unlike the original, which chains and stacks the whole archive, this
+    copy reads only frames lo = max(start - 1, 0) .. N - 1 (W + 1 frames
+    once the archive is longer than the window; `meta.build_frames`), so
+    a build no longer grows with the drive.  It gives the original's
+    arrays: whether a feature of frame f starts a tracklet depends only on
+    assoc[f - 1] and valid[f], so frames lo .. N - 1 decide every tracklet
+    born at or after `start`; those chained from frame lo that were alive
+    before `start` fall to the same first-frame filter, and track ids
+    keep their creation order (tests/test_torch_window_build.py and
+    tests/test_torch_backend.py hold the arrays equal at atol=0)."""
     be = cfg.backend
     N = n_frames if n_frames is not None else m.num_frames
     W = min(window or cfg.tracking.window_size, N)
     start = N - W
+    lo = max(start - 1, 0)
     frames = list(range(start, N))
 
-    # flat (track, frame, feat) arrays sorted by (track, frame) — zero
-    # python loops; this build runs on the tracking thread's core every
-    # window trigger, so host time here steals tracking throughput
-    (tid, frm, fea), _ = build_tracklets(m.stat_assoc[: N - 1],
-                                         m.stat_valid[:N], flat=True)
+    # flat (track, frame, feat) arrays over frames lo .. N - 1, sorted by
+    # (track, frame), frames made absolute again
+    (tid, frm, fea), _ = build_tracklets(m.stat_assoc[lo: N - 1],
+                                         m.stat_valid[lo:N], flat=True)
+    frm = frm + lo
     n_tracks = int(tid.max()) + 1 if tid.size else 1
     counts = np.bincount(tid, minlength=n_tracks)
     is_first = np.ones(tid.size, bool)
@@ -213,10 +228,10 @@ def build_window_graph(m: MapState, cfg: VDOConfig, window: int | None = None,
     s_pid, s_frm, s_fea = s_pid[order], s_frm[order], s_fea[order]
 
     parts = _empty_parts()
-    stat_xy = np.stack(m.stat_xy[:N]) if N else np.zeros((0, 0, 2))
-    stat_depth = np.stack(m.stat_depth[:N])
-    xy = stat_xy[s_frm, s_fea]
-    z = stat_depth[s_frm, s_fea]
+    stat_xy = np.stack(m.stat_xy[lo:N]) if N else np.zeros((0, 0, 2))
+    stat_depth = np.stack(m.stat_depth[lo:N])
+    xy = stat_xy[s_frm - lo, s_fea]
+    z = stat_depth[s_frm - lo, s_fea]
     c = cfg.camera
     parts["obs_pose"] = (s_frm - start).astype(np.int32)
     parts["obs_point"] = s_pid.astype(np.int32)
@@ -244,10 +259,10 @@ def build_window_graph(m: MapState, cfg: VDOConfig, window: int | None = None,
     # both warmed by warmup_window_ba)
     p_cap, e_cap = next((pc, ec) for pc, ec in WINDOW_TIERS
                         if n_pts <= pc and s_pid.size <= ec)
-    stat_3d = np.stack(m.stat_3d[:N])
+    stat_3d = np.stack(m.stat_3d[lo:N])
     pad_p = np.zeros((p_cap, 3), np.float32)
     if n_pts:
-        pad_p[:n_pts] = stat_3d[first_frame[kept_ids],
+        pad_p[:n_pts] = stat_3d[first_frame[kept_ids] - lo,
                                 first_feat[kept_ids]].astype(np.float32)
     variables = Variables(
         poses=np.stack([m.cam_pose[f] for f in frames]).astype(np.float32),
@@ -262,6 +277,7 @@ def build_window_graph(m: MapState, cfg: VDOConfig, window: int | None = None,
         n_tracks_dropped=n_dropped,
     )
     meta.stat_obs = (s_frm, s_fea, s_pid)
+    meta.build_frames = N - lo
     return graph, variables, meta
 
 

@@ -151,7 +151,8 @@ def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
     the write-back; while a recorder is on (utils/profiling.py) each is
     also a span of the same clock reads, `window.build` (with the
     thread's CPU time) .. `window.writeback`, a child of the span open on
-    the calling thread (the solve thread's `window.solve`)."""
+    the calling thread (the solve thread's `window.solve`).  The report's
+    `build_frames` is the number of archive frames the build read."""
     device = torch.device(device)
     rec = profiling.ACTIVE
     end = m.num_frames if n_frames is None else n_frames   # the spans' unit
@@ -207,6 +208,7 @@ def local_ba_inplace(m: MapState, cfg: VDOConfig, window: int | None = None,
         "n_points": meta.n_static_points,
         "window": len(meta.frame_ids),
         "n_tracks_dropped": meta.n_tracks_dropped,
+        "build_frames": meta.build_frames,
         "edge_stats0": stats0,
         "edge_stats": stats,
         "t_build_ms": (t1 - t0) / 1e6,
