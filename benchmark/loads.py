@@ -1,34 +1,86 @@
-"""The traffic kinds: one general generator per kind of load, driven by a
-traffic file's parameters.  A cell names a configuration and a traffic
-file; the file's "kind" picks the loop here.
+"""What the traffic kinds share.  A traffic kind is one general generator
+per kind of load, driven by a traffic file's parameters: a cell names a
+configuration and a traffic file, the file's "kind" names the kind, and
+the kind is the file benchmark/kinds/<kind>.py, found by that name as a
+per-layer metric's reader is (`KINDS`).  A kind file defines
 
-- "drive" (closed loop): one drive of frames made from the seed, packed for
-  the configuration's wire, fed to `System(cfg, mode="fused",
-  enable_global_ba=False)`: warm frames through run_sequence, then the
-  window, ONE run_sequence call over the rest of the drive, as a user runs
-  one sequence.  Its length is --seconds times the file's planning_fps.  A
-  traced run traces trace_frames frames in the middle of that same call.
+    run(cfg_file, cfg, traffic, seed, seconds, trace, device, t_start) -> Run
+    worlds(cfg_file, cfg, traffic, seed, seconds) -> [Stream]
 
-Each kind returns a Run: what the end-to-end and per-layer metrics and the
-reference read.
+`worlds` gives each stream's layout and judged frames as `run` makes
+them, without the program: benchmark/control.py judges the control on
+them.  A kind reaches what it shares here through this module (`loads.X`),
+so that a test or a tool that wraps one of them wraps it for every kind.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import sys
-import time
+from pathlib import Path
 
 import numpy as np
 
 from . import scene as S
-from .counting import pyramid_px
-from .program import PackedFrame, outputs
-from .trace import WindowTrace
+# pyramid_px, outputs and WindowTrace are the kinds' (loads.outputs, ...)
+from .counting import pyramid_px  # noqa: F401
+from .program import PackedFrame, outputs  # noqa: F401
+from .trace import WindowTrace  # noqa: F401
+
+KINDS_DIR = Path(__file__).resolve().parent / "kinds"
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+def load_file(path: Path, name: str):
+    """The module in the file `path`, loaded under `name`."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kind_module(kind: str, where: Path = KINDS_DIR):
+    """The traffic kind `kind`: the module in where/<kind>.py.  An unknown
+    kind stops the run, naming the kinds there are."""
+    path = where / f"{kind}.py"
+    if not path.is_file():
+        have = sorted(p.stem for p in where.glob("*.py"))
+        raise SystemExit(f"no traffic kind {kind!r}: {where} has the kinds "
+                         f"{have}")
+    return load_file(path, "benchmark_kind_" + kind.replace("-", "_"))
+
+
+class Kinds(dict):
+    """The kinds' `run` functions by name, each loaded from its file
+    (`kind_module`) the first time a run asks for it.  An entry set by
+    hand, a kind wrapped for one run (chip_spans.py wraps "drive"), is
+    used as it is."""
+
+    def __init__(self, where: Path = KINDS_DIR):
+        super().__init__()
+        self.where = where
+
+    def __missing__(self, kind: str):
+        self[kind] = kind_module(kind, self.where).run
+        return self[kind]
+
+
+KINDS = Kinds()
+
+
+@dataclasses.dataclass
+class Stream:
+    """One stream of a run as the reference judges it: its world, the
+    frames of its drive that are judged, and the program's answers
+    (`program.outputs`), None until the run has read them."""
+
+    layout: object
+    judged_frames: list
+    outputs: dict | None = None
 
 
 @dataclasses.dataclass
@@ -38,8 +90,7 @@ class Run:
     attempted: int = 0
     failed: int = 0
     e2e: dict = dataclasses.field(default_factory=dict)
-    judged_frames: list = dataclasses.field(default_factory=list)
-    outputs: dict | None = None
+    streams: list = dataclasses.field(default_factory=list)
     memory_peak_bytes: int = 0
     # per-layer inputs
     trace: object = None
@@ -47,7 +98,11 @@ class Run:
     probe: dict | None = None
     window_solve_ms: list = dataclasses.field(default_factory=list)
     fast_px: int = 0
-    layout: object = None
+
+    @property
+    def judged_frames(self) -> list:
+        """Stream 0's judged frames (chip_spans.py reads them)."""
+        return self.streams[0].judged_frames
 
 
 class _Seq:
@@ -175,70 +230,3 @@ def _solve_failures(tracker, since: tuple) -> int:
     return tracker.ba_failures - since[0] + sum(
         1 for h in tracker.ba_health[since[1]:]
         if not (np.isfinite(h["cost"]) and np.isfinite(h["cost0"])))
-
-
-def drive(cfg_file, cfg, traffic, seed, seconds, trace, device, t_start):
-    from vdo_slam_tpu_torch.pipeline import System
-
-    warm, n = window_frames(traffic, seconds)
-    total = total_frames(traffic, n)
-    lay = layout_for(cfg_file, cfg, total, seed)
-    t0 = time.perf_counter()
-    frames = packed_frames(lay, cfg, device, total)
-    log(f"drive: {total} frames rendered and packed in "
-        f"{time.perf_counter() - t0:.3f} s")
-    run = Run()
-    _reset_peak(device)
-    sysm = System(cfg, enable_local_ba=True, enable_global_ba=False,
-                  mode="fused", device=device)
-    sysm.run_sequence(_Seq(frames, 0, warm))
-    _sync(device)
-    run.setup_s = time.perf_counter() - t_start
-    n_solves = len(sysm.map.lba_times)
-    since = (sysm.tracker.ba_failures, len(sysm.tracker.ba_health))
-
-    solves_before_trace = []
-    tracer = (WindowTrace(*traced_stretch(traffic, n),
-                          on_start=lambda: solves_before_trace.append(
-                              len(sysm.map.lba_times)))
-              if trace else None)
-    t0 = time.perf_counter()
-    reps = sysm.run_sequence(_Seq(frames, warm, n,
-                                  tracer.fetched if tracer else None))
-    run.window_s = time.perf_counter() - t0
-    run.memory_peak_bytes = _peak(device)
-    run.window_solve_ms = list(sysm.map.lba_times[n_solves:])
-    if solves_before_trace:
-        # a traced run: the solves that ended before the profiler started
-        run.window_solve_ms = list(
-            sysm.map.lba_times[n_solves:solves_before_trace[0]])
-    run.attempted = n
-    run.failed = _failed(reps, n) + _solve_failures(sysm.tracker, since)
-    run.e2e["frames_per_s"] = n / run.window_s
-    log(f"drive: {n} frames in {run.window_s:.6f} s, "
-        f"{len(run.window_solve_ms)} window solves")
-    run.judged_frames = list(range(warm, warm + n))
-    if trace:
-        t1 = time.perf_counter()
-        run.trace = tracer.result()
-        run.trace_frames = tracer.n
-        log(f"traced stretch: frames {warm + tracer.first} to "
-            f"{warm + tracer.first + tracer.n - 1} of the window's one "
-            f"call, {run.trace.window_s:.6f} s "
-            f"({tracer.n / run.trace.window_s:.3f} frames/s traced, "
-            f"{n / run.window_s:.3f} over the whole window), "
-            f"{len(run.trace.ops)} device operations recorded, read in "
-            f"{time.perf_counter() - t1:.3f} s")
-        t1 = time.perf_counter()
-        probe = sysm.tracker.calibrate_stage_times(frames[warm + n])
-        log(f"stage probe: {time.perf_counter() - t1:.3f} s")
-        run.probe = {k: float(v) for k, v in probe.items()}
-        fe = cfg.frontend
-        run.fast_px = pyramid_px(cfg.camera.height, cfg.camera.width,
-                                 fe.n_levels, fe.scale_factor)
-    run.outputs = outputs(sysm, lay.num_frames)
-    run.layout = lay
-    return run
-
-
-KINDS = {"drive": drive}

@@ -1,6 +1,7 @@
 """The FAST kernel's share of its roofline (csrc/fast_score.cu): the least
-time one launch over a frame's pyramid could take, its bytes at the H100's
-published 3.35 TB/s, over the mean device time of the
+time one launch over the pyramids it scores could take (`run.fast_px`:
+one frame's pyramid, or every stream's in a batched step), its bytes at
+the H100's published 3.35 TB/s, over the mean device time of the
 `fast_pyramid_kernel` launches that ran wholly inside the traced
 stretch."""
 

@@ -1,7 +1,8 @@
-"""The frame step's device time per frame: the summed duration of the
+"""The frame step's device time per step: the summed duration of the
 kernels on the stream that ran the most of them (the tracker's step),
-clipped to the traced stretch of the window's one run_sequence call,
-divided by the frames the program fetched in that stretch."""
+clipped to the traced stretch of the window's one call, divided by the
+steps in that stretch (`run.trace_frames`: frames of a drive, batched
+steps of all streams in a "streams" cell)."""
 
 
 def read(run):

@@ -32,6 +32,12 @@ What is judged, on every frame of the measured window:
   inf;
 - frames_missing: frames offered that have no pose.
 
+A run of several streams judges each against its own world (`worst`):
+frames_missing is the sum over the streams, every other number the worst
+stream's.  Not the 99th percentile of all streams' estimates pooled: a
+fault in one stream of six, one object broken on one frame in 20, is 1.7
+% of that stream's estimates and 0.28 % of the pool, under its tail.
+
 A cell compares the numbers its limits file (benchmark/limits/<cell>.json)
 names: one whose control reads less than 3x its sound runs has no upper
 reading and is left out there (PERF.md §2 gives the readings).
@@ -145,6 +151,15 @@ def judge(out: dict, T_wc: np.ndarray, L: np.ndarray, C: np.ndarray,
     res["obj_corner_p99"] = (float(np.percentile(c, 99)) if c.size
                              else np.inf)
     return res
+
+
+def worst(numbers: list) -> dict:
+    """The numbers compared over several streams, from each stream's own
+    (`judge`): frames_missing their sum, every other number the largest
+    over the streams (NaN where a stream reads NaN)."""
+    out = {k: float(np.max([n[k] for n in numbers])) for k in numbers[0]}
+    out["frames_missing"] = float(sum(n["frames_missing"] for n in numbers))
+    return out
 
 
 def control(T_wc: np.ndarray, L: np.ndarray, C: np.ndarray,

@@ -5,8 +5,8 @@
 
 From the root of a checkout, on a machine with the chips the cell asks for.
 The cell names a configuration file (benchmark/configs/) and a traffic file
-(benchmark/traffic/); the traffic file's "kind" picks the loop in
-benchmark/loads.py, and each per-layer metric is read by
+(benchmark/traffic/); the traffic file's "kind" is the loop in
+benchmark/kinds/<kind>.py, and each per-layer metric is read by
 benchmark/metrics/<name>.py.  The limits that decide `correct` are in
 benchmark/limits/<cell>.json.
 
@@ -21,7 +21,6 @@ loaded, exits with code 3 and prints no result.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import math
 import os
@@ -66,12 +65,10 @@ def _applies(metric: dict, cell: str) -> bool:
 def read_metric(name: str, run):
     """The per-layer metric `name` from its reader, or None where the
     reader finds nothing to read."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(run)
+    from .loads import load_file
+
+    return load_file(HERE / "metrics" / f"{name}.py", "benchmark_metric_"
+                     + name.replace(".", "_").replace("-", "_")).read(run)
 
 
 def forbidden_loaded() -> list:
@@ -98,7 +95,7 @@ def run_cell(name: str, seed: int, seconds: int, trace: bool,
 
     from . import loads
     from .program import build_config
-    from .reference import corners, describe, judge, verdict
+    from .reference import corners, describe, judge, verdict, worst
     from .trace import breakdown
 
     t_start = time.perf_counter() if t_start is None else t_start
@@ -136,11 +133,16 @@ def run_cell(name: str, seed: int, seconds: int, trace: bool,
         dev["window_s"] = run.trace.window_s
         result["breakdown"] = breakdown(run.trace)
 
-    lay = run.layout
-    C = corners(lay.obj_patches)
-    for line in describe(run.outputs, lay.T_wc, lay.L, C, run.judged_frames):
-        log(line)
-    numbers = judge(run.outputs, lay.T_wc, lay.L, C, run.judged_frames)
+    per_stream = []
+    for s, st in enumerate(run.streams):
+        lay = st.layout
+        C = corners(lay.obj_patches)
+        for line in describe(st.outputs, lay.T_wc, lay.L, C,
+                             st.judged_frames):
+            log(line if len(run.streams) == 1 else f"stream {s}: {line}")
+        per_stream.append(judge(st.outputs, lay.T_wc, lay.L, C,
+                                st.judged_frames))
+    numbers = worst(per_stream)
     correct, lines = verdict(numbers, c["limits"])
     result["correct"] = correct
     # the numbers compared, last in the line; one that is not finite is

@@ -3,8 +3,8 @@ torch.profiler's CUDA activity (kernels, copies, fills, and the CUDA
 runtime calls the host made), reduced to intervals that the per-layer
 readers and the breakdown read.
 
-The stretch lies inside the one run_sequence call that the window times:
-`WindowTrace` is told of each frame as the program's reader fetches it,
+The stretch lies inside the one call that the window times (a drive's
+run_sequence, the streams' MultiStreamSystem.run): `WindowTrace` is told of each frame as the program's reader fetches it,
 starts the profiler some frames before the stretch, marks the stretch's
 ends on the host clock, and stops the profiler once the call has
 returned, with no synchronisation, so the stretch sees the drive as it
