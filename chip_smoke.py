@@ -1085,15 +1085,15 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
     ends = record_ends(sysm.tracker)
     kept = {"s": 0.0}
     if keep_map:
-        full_ba = sysm._full_ba
+        full_ba = sysm.refine
 
         def copy_then_full_ba():
             t = time.perf_counter()
             kept["map"] = copy.deepcopy(sysm.map)
             kept["s"] = time.perf_counter() - t
-            full_ba()
+            return full_ba()
 
-        sysm._full_ba = copy_then_full_ba
+        sysm.refine = copy_then_full_ba
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = 0

@@ -885,6 +885,31 @@ def test_full_ba_graph_matches_eager(tracked_map):
             np.testing.assert_allclose(a, b, atol=1e-5)
 
 
+def test_system_refine_replays_after_its_warmup(tracked_map):
+    """System.warmup_refine for the archive's length, then System.refine:
+    every chunk replays a graph, the caps hold, and the objective is the
+    plain reference's float64 one (eval/plain_full_batch.py) within 1e-4
+    relative."""
+    import copy
+
+    from vdo_slam_tpu_torch.eval import plain_full_batch as ref
+    from vdo_slam_tpu_torch.pipeline import System
+
+    m, cfg = tracked_map
+    cfg = cfg.replace(backend=dataclasses.replace(
+        cfg.backend, full_obs_cap=16384, full_ter_cap=8192,
+        full_point_cap=16384, full_motion_cap=64, full_smo_cap=64))
+    sysm = System(cfg, enable_local_ba=False, enable_global_ba=True,
+                  mode="fused", device="cuda")
+    sysm.map = copy.deepcopy(m)
+    sysm.warmup_refine(m.num_frames)
+    p = ref.build(sysm.map, ref.settings(dataclasses.asdict(cfg.backend),
+                                         dataclasses.asdict(cfg.camera)))
+    rep = sysm.refine()
+    assert rep["caps_held"] and rep["chunk_modes"] == ["replay"]
+    assert ref.check(p, rep, sysm.map, 1e-4, "cuda")["ok"]
+
+
 @pytest.mark.parametrize("n_dev", [2, 4])
 def test_sharded_full_ba_graph_matches_eager(tracked_map, n_dev):
     """full_ba_inplace over ["cuda:0"] * n_dev from FullBAGraphs over the

@@ -70,6 +70,11 @@ class GraphMeta:
     n_tracks_dropped: int = 0     # tracklets over P_CAP/E_CAP (window only)
     stat_obs: tuple | None = None  # full: (frames, feats, pids) arrays
     build_frames: int | None = None  # window: archive frames the build read
+    # full: per full_* cap, {"n": real count, "cap": configured cap or
+    # None, "padded": the graph's size}; caps_held is False where a
+    # configured cap overflowed (its shapes then fall back to buckets)
+    caps: dict | None = None
+    caps_held: bool = True
 
 
 def _pad_graph(parts: dict, n_pose: int, n_mot: int, bucket: int,
@@ -495,11 +500,24 @@ def build_full_graph(m: MapState, cfg: VDOConfig):
         "Es": _apply_cap(be.full_smo_cap, len(parts["smo_a"]), "smooth"),
     }
     graph = _pad_graph(parts, N, M_pad, 4096, sizes=sizes)
+    n_pts = pts_static.shape[0] + pts_dyn.shape[0]
+    caps = {name: {"n": n, "cap": cap, "padded": padded}
+            for name, n, cap, padded in (
+                ("obs", len(parts["obs_pose"]), be.full_obs_cap,
+                 graph.obs_w.shape[0]),
+                ("ternary", len(parts["ter_prev"]), be.full_ter_cap,
+                 graph.ter_w.shape[0]),
+                ("smooth", len(parts["smo_a"]), be.full_smo_cap,
+                 graph.smo_w.shape[0]),
+                ("points", n_pts, be.full_point_cap, P_pad),
+                ("motions", len(motion_slots), be.full_motion_cap, M_pad))}
     meta = GraphMeta(
         frame_ids=list(range(N)), static_tracks=[],
         n_static_points=n_static,
         dyn_obs=(d_frm.astype(np.int64), d_fea.astype(np.int64)),
         motion_slots=motion_slots, n_poses=N, n_motions=n_motions,
+        caps=caps, caps_held=all(c["cap"] is None or c["n"] <= c["cap"]
+                                 for c in caps.values()),
     )
     meta.stat_obs = (s_frm.astype(np.int64), s_fea.astype(np.int64),
                      s_pid.astype(np.int64))

@@ -39,11 +39,12 @@ import torch
 from ..config import VDOConfig
 from ..devices import device_list
 from ..pipeline.map_state import MapState
+from ..utils import profiling
 from ..utils.cuda_graph import GraphedCall, StaticTree, tree_flatten
 from .builders import build_full_graph, empty_full_graph
 from .factor_graph import (LMParams, Variables, _chunked, _lam, _lm,
-                           _shard_edges, device_like, fetch,
-                           lm_solve_chunked, lm_solve_sharded_chunked, upload)
+                           _shard_edges, device_like, fetch, lm_solve,
+                           upload)
 
 # LM iterations per chunk by default (BackendConfig.full_ba_chunk): the
 # gain test runs at chunk boundaries only (full_ba.py:25-34)
@@ -126,6 +127,8 @@ class FullBAGraphs:
         self._inputs: dict = {}
         self._calls: dict = {}
         self._lock = threading.Lock()
+        # what each chunk call did (GraphedCall.next_call), in call order
+        self.modes: list[str] = []
 
     @contextlib.contextmanager
     def solver(self, graph, v0, p: LMParams):
@@ -164,7 +167,9 @@ class FullBAGraphs:
                         f"P={v_like.points.shape[0]} "
                         f"E={graph.obs_w.shape[0]} iters={pc.iters}"
                         + (f" shards={n}" if n > 1 else ""))
-                return self._calls[key, pc]()
+                call = self._calls[key, pc]
+                self.modes.append(call.next_call())
+                return call()
 
             yield state.tree[0], solve
 
@@ -216,62 +221,109 @@ def full_ba_inplace(m: MapState, cfg: VDOConfig, iters: int | None = None,
     visible card when `device` is CUDA): more than one shards the edges
     over them, one runs the single-device solve on it.  Each chunk runs
     from `graphs` where given, which must be made for this device list
-    (`graphs_for`; ValueError otherwise); without, eagerly."""
+    (`graphs_for`; ValueError otherwise); without, eagerly.
+
+    The report says whether every configured full_* cap held (`caps_held`,
+    each cap's counts under `caps`) and how each chunk ran
+    (`chunk_modes`: "replay", "capture" or "warm" from a graph, "eager"
+    without one or off a card).  While a recorder is on
+    (utils/profiling.py) the solve is the span full.refine (unit: the
+    archive's frames) over full.build, full.upload, one full.chunk per
+    LM chunk (unit: its index; it ends after the chunk's gain test, which
+    waits for the card where full_gain_thres > 0), full.fetch and
+    full.writeback, and it counts the graph's sizes (full.<caps key>,
+    real, and full.<caps key>_padded), full.caps_held, full.iters_run,
+    full.cg_iters (CG iterations per LM iteration) and full.chunk (how
+    each chunk ran, unit: its index)."""
     devices = device_list(devices, device)
     if graphs is not None and [_card(d) for d in graphs.devices] != [
             _card(d) for d in devices]:
         raise ValueError(f"graphs for {[str(d) for d in graphs.devices]}, "
                          f"a solve over {[str(d) for d in devices]}")
+    with profiling.span("full.refine", m.num_frames):
+        return _full_ba(m, cfg, iters, devices, graphs)
+
+
+def _full_ba(m: MapState, cfg: VDOConfig, iters, devices,
+             graphs: FullBAGraphs | None) -> dict:
     t0 = time.perf_counter()
-    graph_host, v0, meta = build_full_graph(m, cfg)
+    with profiling.span("full.build", m.num_frames, cpu=True):
+        graph_host, v0, meta = build_full_graph(m, cfg)
     p = scaled_lm_params(cfg, graph_host.obs_w.shape[0], iters)
     chunk = min(cfg.backend.full_ba_chunk, p.iters)
+    for name, c in meta.caps.items():
+        profiling.count(f"full.{name}", c["n"])
+        profiling.count(f"full.{name}_padded", c["padded"])
+    profiling.count("full.caps_held", meta.caps_held)
+    profiling.count("full.cg_iters", p.cg_iters)
     chunk_times = []
+    modes = []
+    rec = profiling.ACTIVE
+    open_chunk = []
 
     def mark(i, _):
         chunk_times.append(time.perf_counter())
+        if rec is not None:
+            rec.end(open_chunk.pop())
 
     with contextlib.ExitStack() as held:
         # one copy for all chunks; the sharded solve pads and shards it
         # once; the graphs hold their lock until the fetch
-        if graphs is not None:
-            v0, solve = held.enter_context(graphs.solver(graph_host, v0, p))
-        else:
-            graph, v0 = upload(graph_host, v0, devices[0])
+        with profiling.span("full.upload", m.num_frames):
+            if graphs is not None:
+                v0, solve = held.enter_context(
+                    graphs.solver(graph_host, v0, p))
+            else:
+                graph, v0 = upload(graph_host, v0, devices[0])
+                if len(devices) > 1:
+                    # eager: no graphs passed, as over distinct cards
+                    shards = _shard_edges(graph, devices)
+
+                    def solve(v, pc, lam):
+                        return _lm(shards, v, pc, lam)
+                else:
+                    def solve(v, pc, lam):
+                        return lm_solve(graph, v, pc, lam0=lam)
         t_build = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if graphs is not None:
-            v, info = _chunked(solve, v0, p, chunk, mark)
-        elif len(devices) > 1:
-            # eager: no graphs passed, as over distinct cards
-            v, info = lm_solve_sharded_chunked(graph, v0, p, devices,
-                                               chunk=chunk, callback=mark)
-        else:
-            v, info = lm_solve_chunked(graph, v0, p, chunk=chunk,
-                                       callback=mark)
+
+        def chunk_solve(v, pc, lam):
+            if rec is not None:
+                open_chunk.append(rec.begin("full.chunk", len(chunk_times)))
+            out = solve(v, pc, lam)
+            modes.append(graphs.modes[-1] if graphs is not None
+                         else "eager")
+            return out
+
+        v, info = _chunked(chunk_solve, v0, p, chunk, mark)
         # ONE device-to-host copy
-        poses, motions, points, cost0, cost, stats0, stats = fetch(
-            (v.poses, v.motions, v.points, info["cost0"], info["cost"],
-             info["stats0"], info["stats"]))
+        with profiling.span("full.fetch", m.num_frames):
+            poses, motions, points, cost0, cost, stats0, stats = fetch(
+                (v.poses, v.motions, v.points, info["cost0"], info["cost"],
+                 info["stats0"], info["stats"]))
     t_solve = time.perf_counter() - t0
+    profiling.count("full.iters_run", info["iters_run"])
+    for i, mode in enumerate(modes):
+        profiling.count("full.chunk", mode, i)
     t0 = time.perf_counter()
 
-    for f in range(m.num_frames):
-        m.cam_pose_rf[f] = poses[f].astype(np.float32)
-    for mid, (fp, j) in enumerate(meta.motion_slots):
-        m.rigid_motion_rf[fp][j] = motions[mid].astype(np.float32)
-    # vectorized point write-back over the flat observation arrays
-    s_frm, s_fea, s_pid = meta.stat_obs
-    big = np.stack(m.stat_3d)
-    big[s_frm, s_fea] = points[s_pid]
-    for f in range(m.num_frames):
-        m.stat_3d[f] = big[f]
-    d_frm, d_fea = meta.dyn_obs
-    big = np.stack(m.dyn_3d)
-    big[d_frm, d_fea] = points[meta.n_static_points:
-                               meta.n_static_points + d_frm.size]
-    for f in range(m.num_frames):
-        m.dyn_3d[f] = big[f]
+    with profiling.span("full.writeback", m.num_frames):
+        for f in range(m.num_frames):
+            m.cam_pose_rf[f] = poses[f].astype(np.float32)
+        for mid, (fp, j) in enumerate(meta.motion_slots):
+            m.rigid_motion_rf[fp][j] = motions[mid].astype(np.float32)
+        # vectorized point write-back over the flat observation arrays
+        s_frm, s_fea, s_pid = meta.stat_obs
+        big = np.stack(m.stat_3d)
+        big[s_frm, s_fea] = points[s_pid]
+        for f in range(m.num_frames):
+            m.stat_3d[f] = big[f]
+        d_frm, d_fea = meta.dyn_obs
+        big = np.stack(m.dyn_3d)
+        big[d_frm, d_fea] = points[meta.n_static_points:
+                                   meta.n_static_points + d_frm.size]
+        for f in range(m.num_frames):
+            m.dyn_3d[f] = big[f]
     t_wb = time.perf_counter() - t0
     # the optimized graph for save_results' dynamic_slam_graph_after_opt.g2o
     # (Optimizer.cc:1935-1936)
@@ -292,6 +344,15 @@ def full_ba_inplace(m: MapState, cfg: VDOConfig, iters: int | None = None,
         "edge_stats0": stats0,
         "edge_stats": stats,
         "iters_run": info.get("iters_run"),
+        "cg_iters": p.cg_iters,
+        # every edge type's size in the solved (padded) graph
+        "edges": {name: int(getattr(graph_host, w).shape[0])
+                  for name, w in (("obs", "obs_w"), ("odo", "odo_w"),
+                                  ("pri", "pri_w"), ("smo", "smo_w"),
+                                  ("ter", "ter_w"), ("alt", "alt_w"))},
+        "caps": meta.caps,
+        "caps_held": meta.caps_held,
+        "chunk_modes": list(modes),
         "t_build_s": t_build,
         "t_solve_s": t_solve,
         "t_writeback_s": t_wb,

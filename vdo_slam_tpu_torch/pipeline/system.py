@@ -5,6 +5,10 @@
     sys.run_sequence(dataset)           # tracking, window BA, then full BA
     sys.metrics(); sys.metrics(refined=True); sys.save_results(out_dir)
 
+    sys.warmup_refine(n_frames)         # the full BA's graphs, ahead
+    sys.run_sequence(dataset, refine=False)
+    sys.refine()                        # the end-of-sequence full BA
+
 The defaults are the JAX package's, so the same call means the same run in
 both packages.  mode "reference" (the default) drives the host-orchestrated
 Tracker of pipeline/tracking.py, one frame per call; mode "fused" drives
@@ -15,19 +19,22 @@ OVERLAP_SIZE frames: in mode "reference" at once on the tracking thread,
 in mode "fused" on the tracker's background solve thread, which the
 tracker's flush joins (at the end of run_sequence, and before metrics(),
 timing() and save_results() read the map), as in the JAX package.  With
-enable_global_ba, run_sequence ends with the full-batch solve, after the
-window solves, and keeps its report in `full_ba_report`.  On a card the
-window solves run from CUDA graphs (backend/window_ba.py:WindowGraphs),
-one per shape tier, warmed and captured when the System is made
-(`warmup_window_ba`), before tracking starts.  The full BA runs from the
-System's `full_graphs` (backend/full_ba.py:FullBAGraphs, over the device
-list the solve takes; None over distinct cards, whose sharded solve runs
-eagerly), which the System does not warm, as the JAX package's System
-does not: without the full_* caps the full graph's shapes vary from run
-to run, so a run's one full BA
-is its graphs' warm-up (a key's second chunk captures, later ones
-replay); a caller that knows the caps warms them first
-(`warmup_full_ba`, as the bench does).
+enable_global_ba, run_sequence ends with the full-batch solve (`refine`),
+after the window solves, and keeps its report in `full_ba_report`;
+run_sequence(refine=False) holds it back, for a caller that tracks first
+and refines afterwards.  On a card the window solves run from CUDA graphs
+(backend/window_ba.py:WindowGraphs), one per shape tier, warmed and
+captured when the System is made (`warmup_window_ba`), before tracking
+starts.  The full BA runs from the System's `full_graphs`
+(backend/full_ba.py:FullBAGraphs, over the device list the solve takes;
+None over distinct cards, whose sharded solve runs eagerly), which the
+System does not warm, as the JAX package's System does not: without the
+full_* caps the full graph's shapes vary from run to run, so a run's one
+full BA is its graphs' warm-up (a key's first chunk runs eagerly, its
+second captures, later ones replay).  A caller that knows the caps warms
+them first (`warmup_refine`, backend/full_ba.py:warmup_full_ba, as the
+bench does); every chunk of a refine of that archive length then replays
+a graph.
 """
 
 from __future__ import annotations
@@ -99,8 +106,10 @@ class System:
         return self.tracker.grab_frame(fd)
 
     def run_sequence(self, dataset, max_frames: int | None = None,
-                     verbose: bool = False) -> list[dict]:
-        """Demo loop (example/vdo_slam.cc:98-141).
+                     verbose: bool = False,
+                     refine: bool = True) -> list[dict]:
+        """Demo loop (example/vdo_slam.cc:98-141), ending with the full BA
+        (`refine`) where enable_global_ba is set, unless refine=False.
 
         Frames are read ahead on a background thread (io/prefetch.py) and
         the next frame's or chunk's upload is queued right behind the
@@ -117,7 +126,8 @@ class System:
         tracker = self.tracker
         if isinstance(tracker, Tracker):
             reports = self._drive_reference(dataset, n, verbose)
-            self._full_ba()
+            if refine and self.enable_global_ba:
+                self.refine()
             return reports
         reports: list[dict] = []
 
@@ -142,18 +152,43 @@ class System:
         final = tracker.flush()
         for rep in ([final] if isinstance(final, dict) else (final or [])):
             show(rep)
-        self._full_ba()
+        if refine and self.enable_global_ba:
+            self.refine()
         return reports
 
-    def _full_ba(self) -> None:
-        """Final-frame global refinement (Tracking.cc:1190-1208, KITTI only
-        in the reference; here gated by enable_global_ba)."""
-        if self.enable_global_ba and self.map.num_frames > 2:
-            from ..backend.full_ba import full_ba_inplace
+    def refine(self) -> dict | None:
+        """The end-of-sequence full-batch refine (Tracking.cc:1190-1208,
+        KITTI only in the reference; run_sequence calls it where
+        enable_global_ba is set) over everything archived so far, after
+        the tracker's window solves have ended: refined poses into
+        `map.cam_pose_rf`, motions into `map.rigid_motion_rf`, points in
+        place; returns its report (backend/full_ba.py:full_ba_inplace),
+        also kept in `full_ba_report`.  None for an archive of two frames
+        or fewer.  It runs from the System's `full_graphs`, eagerly where
+        there are none."""
+        self._flush()
+        if self.map.num_frames <= 2:
+            return None
+        from ..backend.full_ba import full_ba_inplace
 
-            self.full_ba_report = full_ba_inplace(
-                self.map, self.cfg, device=self.tracker.device,
-                graphs=self.full_graphs)
+        self.full_ba_report = full_ba_inplace(
+            self.map, self.cfg, device=self.tracker.device,
+            graphs=self.full_graphs)
+        return self.full_ba_report
+
+    def warmup_refine(self, n_frames: int) -> None:
+        """Warm and capture the System's `full_graphs` for a refine of an
+        n_frames archive (backend/full_ba.py:warmup_full_ba), so that such
+        a refine replays graphs and captures nothing.  Needs every full_*
+        cap set; ValueError without graphs (enable_global_ba off, or a
+        solve over distinct cards, which runs eagerly)."""
+        from ..backend.full_ba import warmup_full_ba
+
+        if self.full_graphs is None:
+            raise ValueError("this System's full BA has no graphs to warm "
+                             "(enable_global_ba is off, or its solve spans "
+                             "distinct cards and runs eagerly)")
+        warmup_full_ba(self.cfg, n_frames, self.full_graphs)
 
     def _drive_reference(self, dataset, n: int, verbose: bool) -> list[dict]:
         """The host Tracker's loop (system.py:193-201): one frame per

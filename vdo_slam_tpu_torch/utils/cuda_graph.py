@@ -301,6 +301,15 @@ class GraphedCall:
         self._warm_launches: dict = {}
         self._static_out: StaticTree | None = None
 
+    def next_call(self) -> str:
+        """What the next call does: "eager" off a card (every call there),
+        else "warm" (the first), "capture" (the second) or "replay"."""
+        if self.device.type != "cuda":
+            return "eager"
+        if self.warm_s is None:
+            return "warm"
+        return "capture" if self.graph is None else "replay"
+
     def __call__(self):
         if self.device.type != "cuda":
             out = self.fn()

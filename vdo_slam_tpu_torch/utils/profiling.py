@@ -14,7 +14,8 @@ yields the `StageTimer` that collects the records, which stay in memory:
         System(cfg, mode="fused").run_sequence(frames)
     rec.spans
 
-A site is `with profiling.span(name, unit):`.
+A site is `with profiling.span(name, unit):`, and a counter
+`profiling.count(name, value, unit)`.
 Off, a site reads the module's `ACTIVE` reference and branches: it reads no
 clock, allocates nothing and never waits for the device.  On, each span
 records its name, its start and end on `time.time_ns()` (the clock
@@ -26,7 +27,9 @@ asks (`cpu=True`, pure host work), the thread's CPU time over the span:
 wall less CPU is the time the work was ready but off the CPU, held by the
 interpreter lock or the scheduler.  A site that already times itself hands
 its own clock reads to `StageTimer.add`, so its report and its span agree
-exactly.
+exactly.  A counter records a value the work counted (edges, iterations,
+how a chunk ran) with its unit, its thread, the innermost span open on
+that thread and the time it was taken.
 """
 
 from __future__ import annotations
@@ -59,6 +62,19 @@ class Span:
     @property
     def wall_ns(self) -> int:
         return self.end_ns - self.start_ns
+
+
+@dataclasses.dataclass(slots=True)
+class Count:
+    """One recorded counter: a value (a number, a flag or a word), the
+    unit of work it belongs to, and where and when it was taken."""
+
+    name: str
+    value: object
+    unit: object
+    thread: str
+    parent: int | None      # id of the innermost span open on its thread
+    t_ns: int
 
 
 class _Off:
@@ -96,11 +112,12 @@ class _Open:
 
 class StageTimer:
     """The records of one `recording()` block: `spans` in the order they
-    ended.  Safe to use from several threads: each thread keeps its own
+    ended, `counts` in the order they were taken.  Safe to use from several threads: each thread keeps its own
     stack of open spans, and a span is one atomic append."""
 
     def __init__(self):
         self.spans: list[Span] = []
+        self.counts: list[Count] = []
         self._ids = itertools.count()
         self._local = threading.local()
 
@@ -153,8 +170,20 @@ class StageTimer:
         self.spans.append(sp)
         return sp
 
+    def count(self, name: str, value, unit=None) -> Count:
+        """Record a counter, a child of the innermost span open on this
+        thread."""
+        st = self._stack()
+        c = Count(name, value, unit, threading.current_thread().name,
+                  st[-1].id if st else None, time.time_ns())
+        self.counts.append(c)
+        return c
+
     def named(self, name: str) -> list[Span]:
         return [s for s in self.spans if s.name == name]
+
+    def counted(self, name: str) -> list[Count]:
+        return [c for c in self.counts if c.name == name]
 
     def summary(self) -> dict:
         """Per span name: seconds in all, the number of spans, mean ms."""
@@ -188,3 +217,11 @@ def span(name: str, unit=None, n: int = 1, cpu: bool = False):
     if rec is None:
         return _OFF
     return rec.span(name, unit, n, cpu)
+
+
+def count(name: str, value, unit=None) -> None:
+    """A site's counter: recorded while a recorder is on, else nothing
+    (no clock read)."""
+    rec = ACTIVE
+    if rec is not None:
+        rec.count(name, value, unit)
