@@ -40,6 +40,7 @@ CUTS = {
 
 def build(source: str, cuts, out_dir: Path, name: str):
     from vdo_slam_tpu_torch.ops import fast_cuda as fc
+    from vdo_slam_tpu_torch.ops.nvcc_build import NVCC_FLAGS, nvcc
 
     for old, new in cuts:
         if old not in source:
@@ -48,7 +49,7 @@ def build(source: str, cuts, out_dir: Path, name: str):
     cu = out_dir / f"{name}.cu"
     so = out_dir / f"lib{name}.so"
     cu.write_text(source)
-    subprocess.run([fc._nvcc(), *fc.NVCC_FLAGS, "-o", str(so), str(cu)],
+    subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
                    check=True, capture_output=True, text=True)
     kernel = fc.FastScoreKernel()
     kernel._lib = ctypes.CDLL(str(so))

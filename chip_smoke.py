@@ -16,6 +16,13 @@ Phases, in order (any failure raises and exits nonzero):
      frame against its bound, the plain version's, the compass test's pass
      shares, per-level times, and the S=1, S=4 and S=6 launches
      interleaved, each against its byte bound;
+  3b. the edge Hessian-vector kernels (csrc/edge_hessian.cu) at the
+     1,028-frame refine's caps (a graph of about a drive's counts,
+     tests/hv_graphs.py, linearised by the solver): H t + damp t and the
+     block-Jacobi apply against their plain versions on the card (within
+     1e-5 relative), then each timed by CUDA events and on the device
+     beside its byte bound and the plain version's time.
+     `python3 chip_smoke.py --edge-hessian` runs this phase alone;
   4. the main path: System(mode="fused", device="cuda").run_sequence over
      the bench scene (make_scene(num_frames=101, 1242x375, 3 objects,
      seed 7); the dataset tracks num_frames - 1) cut to its first 25
@@ -31,9 +38,12 @@ Phases, in order (any failure raises and exits nonzero):
      and its own CUDA stream), the full-batch solve at the end.  Checks:
      100 frames, one FAST launch per frame, 6 window solves at the window
      ends 20, 36, 52, 68, 84 and 100, none of which raises the cost,
-     ba_failures 0, a full BA that lowers it, and metrics() and
-     metrics(refined=True) within the gates against the JAX package's
-     numbers; prints the seconds flush waited for solves still running.
+     ba_failures 0, a full BA that lowers it and goes through the edge
+     Hessian kernels (edge types x CG steps x LM iterations edge launches,
+     (2 x CG steps + 1) x LM iterations vertex passes, counted from zero
+     for the run), and metrics() and metrics(refined=True) within the gates
+     against the JAX package's numbers; prints the seconds flush waited for
+     solves still running.
      Then, on the final map, one window solve and one full BA under
      torch.profiler (kernel launches, device busy share), both solvers on
      the card against the same solve on the CPU, and (5d) one trace of a
@@ -174,7 +184,8 @@ Phases, in order (any failure raises and exits nonzero):
      and each capture's record), then the full BA from the graphs against
      the eager full BA (wall ms per solve, solve seconds, host launch
      calls, the cost within 1e-5 relative, the refined poses within the
-     bounds of 16a); (b) phase 8's 100 frames (its run is the graphed
+     bounds of 16a, each capture's edge Hessian launches a replay equal to
+     edge types x CG steps x its iterations); (b) phase 8's 100 frames (its run is the graphed
      one) through the host Tracker with its stage functions called
      directly: each frame's pose within the bounds of 16a with the same
      objects, equal object estimates, fps over tracking each way, host
@@ -863,6 +874,153 @@ class _View:
 WARM = 3
 
 
+def _kernel_times(fn, reps: int) -> dict:
+    """{kernel name: (launches, mean device ms)} of the kernels fn launches
+    under torch.profiler (CUDA activity only), over reps calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total / e.count / 1e3)
+            for e in prof.key_averages() if e.count}
+
+
+def hv_bytes(g, blocks, weights, t) -> tuple[int, int, int]:
+    """The floor bytes of one product H t + damp * t (edge fields and the
+    vertex rows), of its edge launches alone, and of one block-Jacobi
+    apply: every weight read once, and the indices and Jacobian blocks of
+    every edge whose weight is not 0 (a zero-weight edge adds nothing to
+    the product; a block of edge stride 0 reads nothing; a transposed view
+    reads its 9 floats), each tangent and damping row read once, each
+    output row written once."""
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+
+    edges = 0
+    for edge, inc in EH.INCIDENCE.items():
+        w = weights[edge]
+        live = int((w != 0).sum())
+        per = 8 * len(inc)
+        for J, _, _ in inc:
+            b = blocks[J]
+            per += 0 if b.stride(0) == 0 else 4 * b.shape[1] * b.shape[2]
+        edges += 4 * w.shape[0] + live * per
+    rows = sum(4 * x.numel() for x in (t.poses, t.motions, t.points))
+    blocks_jacobi = sum(4 * x.numel() * w
+                        for x, w in ((t.poses, 6), (t.motions, 6),
+                                     (t.points, 3)))
+    return edges + 3 * rows, edges, blocks_jacobi + 2 * rows
+
+
+def edge_hessian_phase(device, card: str, reps: int = 20) -> dict:
+    """Phase 3b: the edge Hessian-vector kernels (csrc/edge_hessian.cu) at
+    the 1,028-frame refine's caps, on a graph of about a drive's counts
+    (tests/hv_graphs.py) with the blocks, weights, damping and inverted
+    block-Jacobi blocks of factor_graph's own linearisation: each output
+    against the plain version on the card (within 1e-5 relative), then
+    one product's launch set (the vertex pass and six edge launches) and
+    one block-Jacobi apply timed by CUDA events and by the profiler,
+    beside their byte bounds and the plain versions' times."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import hv_graphs
+    from vdo_slam_tpu_torch.backend import factor_graph as fg
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+
+    EH.KERNEL.build()
+    print(f"edge Hessian kernels built and loaded in "
+          f"{EH.KERNEL.build_seconds:.2f} s")
+    for line in EH.KERNEL.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    g, v = hv_graphs.upload(*hv_graphs.make_graph(
+        seed=11, caps=hv_graphs.REFINE_CAPS, **hv_graphs.REFINE_SHAPE),
+        device)
+    F, M, P = v.poses.shape[0], v.motions.shape[0], v.points.shape[0]
+    _, weights, blocks = fg._linearize(g, v, fg.LMParams())
+    D = fg._block_diag(g, blocks, weights, F, M, P)
+    damp = fg._damped_diag(D, torch.full((), 1e-4, device=device))
+    Dinv = fg._invert_precond(tuple(
+        x + torch.diag_embed(d)
+        for x, d in zip(D, (damp.poses, damp.motions, damp.points))))
+    t = hv_graphs.random_tangent(v, seed=2)
+    torch.cuda.synchronize()
+    print(f"graph at the refine's caps: F {F}, M {M}, P {P}, edges "
+          f"{ {e: weights[e].shape[0] for e in EH.INCIDENCE} } (of them "
+          f"weight 0: { {e: int((weights[e] == 0).sum()) for e in EH.INCIDENCE} }"
+          f"), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def kern():
+        return EH.hessian_vector(g, blocks, weights, t, damp)
+
+    def plain():
+        return EH.damped_plain(EH.matvec_plain(g, blocks, weights, t), damp,
+                               t)
+
+    def pre_kern():
+        return EH.block_jacobi(Dinv, t)
+
+    def pre_plain():
+        return EH.precond_plain(Dinv, t)
+
+    gap = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(kern(), plain()))
+    gap_pre = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(pre_kern(), pre_plain()))
+    print(f"H t + damp t against the plain version on the card: largest "
+          f"gap {gap:.3e} of each output's largest entry; Dinv r "
+          f"{gap_pre:.3e}")
+    if not (gap <= 1e-5 and gap_pre <= 1e-5):
+        raise RuntimeError("the edge Hessian kernels depart from their "
+                           "plain version")
+    hv_all, hv_edges, pre_b = hv_bytes(g, blocks, weights, t)
+    out = {"ms": _time_ms(kern, reps), "plain_ms": _time_ms(plain, reps),
+           "pre_ms": _time_ms(pre_kern, reps),
+           "pre_plain_ms": _time_ms(pre_plain, reps)}
+    times = _kernel_times(kern, reps)
+    edge_ms = sum(n * ms for k, (n, ms) in times.items()
+                  if "edge_hv_kernel" in k) / reps
+    vx_ms = sum(n * ms for k, (n, ms) in times.items()
+                if "vertex_kernel" in k) / reps
+    pre_dev = sum(n * ms for k, (n, ms) in _kernel_times(
+        pre_kern, reps).items()) / reps
+    plain_dev = sum(n * ms for _, (n, ms) in _kernel_times(
+        plain, reps).items()) / reps
+    pre_plain_dev = sum(n * ms for _, (n, ms) in _kernel_times(
+        pre_plain, reps).items()) / reps
+    bound = hv_all / HBM_BYTES_PER_S * 1e3
+    bound_edges = hv_edges / HBM_BYTES_PER_S * 1e3
+    bound_pre = pre_b / HBM_BYTES_PER_S * 1e3
+    for k, (n, ms) in sorted(times.items()):
+        print(f"  {k[:90]}: {n / reps:.0f} a product, {ms:.4f} ms each on "
+              f"the device")
+    print(f"one product H t + damp t (7 launches): {out['ms']:.4f} ms by "
+          f"events, {edge_ms + vx_ms:.4f} ms on the device (edges "
+          f"{edge_ms:.4f}, vertex pass {vx_ms:.4f}); byte bound "
+          f"{bound:.4f} ms ({hv_all / 1e9:.3f} GB at 3.35 TB/s; edges alone "
+          f"{bound_edges:.4f} ms), share {bound / (edge_ms + vx_ms):.3f}; "
+          f"the plain version {out['plain_ms']:.4f} ms by events, "
+          f"{plain_dev:.4f} ms on the device [{card}]")
+    print(f"one block-Jacobi apply Dinv r (1 launch): {out['pre_ms']:.4f} ms "
+          f"by events, {pre_dev:.4f} ms on the device; byte bound "
+          f"{bound_pre:.4f} ms, share {bound_pre / pre_dev:.3f}; the plain "
+          f"version {out['pre_plain_ms']:.4f} ms by events, "
+          f"{pre_plain_dev:.4f} ms on the device [{card}]")
+    out.update(device_ms=edge_ms + vx_ms, edge_ms=edge_ms, vertex_ms=vx_ms,
+               plain_device_ms=plain_dev, pre_device_ms=pre_dev,
+               pre_plain_device_ms=pre_plain_dev, bound_ms=bound,
+               pre_bound_ms=bound_pre, gap=gap, gap_pre=gap_pre)
+    del g, v, blocks, weights, D, Dinv, t
+    torch.cuda.empty_cache()
+    return out
+
+
 def _timed_run(run, ds_list):
     """bench.py's timing (bench.py:328-350): `run` over the first WARM
     frames of every dataset, then, timed on the host clock between two
@@ -1075,6 +1233,7 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
 
     from vdo_slam_tpu_torch.backend.full_ba import full_ba_inplace
     from vdo_slam_tpu_torch.backend.window_ba import local_ba_inplace
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
     from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
     from vdo_slam_tpu_torch.pipeline import System
 
@@ -1096,13 +1255,14 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
         sysm.refine = copy_then_full_ba
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = 0
+    KERNEL.launches = EH.KERNEL.launches = EH.VERTEX.launches = 0
     JOIN_WAIT.update(s=0.0, joins=0)
     t0 = time.perf_counter()
     reports = sysm.run_sequence(ds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - kept["s"]
     launches = KERNEL.launches
+    hv_launches, vx_launches = EH.KERNEL.launches, EH.VERTEX.launches
     waited = join_wait(what, card)
     peak = torch.cuda.max_memory_allocated()
     health, full = sysm.tracker.ba_health, sysm.full_ba_report
@@ -1154,6 +1314,21 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
           f"motions [{card}]")
     if not full["cost"] < full["cost0"]:
         raise RuntimeError("the full BA did not lower the cost")
+    # the refine is the only solve of the run that takes PCG's product (the
+    # window solves are "schur"): one edge launch per edge type with edges
+    # per CG step, a vertex pass per product and per preconditioner apply
+    n_types = sum(1 for x in full["edges"].values() if x)
+    want_hv = n_types * full["cg_iters"] * full["iters_run"]
+    want_vx = (2 * full["cg_iters"] + 1) * full["iters_run"]
+    print(f"{what}: full BA through the edge Hessian kernels: "
+          f"{hv_launches} edge launches ({n_types} edge types x "
+          f"{full['cg_iters']} CG steps x {full['iters_run']} LM iterations "
+          f"= {want_hv}), {vx_launches} vertex passes (want {want_vx}); "
+          f"chunks {full['chunk_modes']}")
+    if (hv_launches, vx_launches) != (want_hv, want_vx) or not want_hv:
+        raise RuntimeError(f"{what}: {hv_launches} edge launches and "
+                           f"{vx_launches} vertex passes in the full BA, "
+                           f"want {want_hv} and {want_vx}")
     for r in reports:
         if not np.isfinite(r["T_cw"]).all():
             raise RuntimeError("non-finite pose in a report")
@@ -1162,7 +1337,8 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
     if n == N_BA_FRAMES:
         gate(metrics["initial"], ref["initial"], f" ({what}, before full BA)")
         gate(metrics["refined"], ref["refined"], f" ({what}, refined)")
-    out = {"fast_launches": launches, "peak_bytes": peak, "wall_s": wall,
+    out = {"fast_launches": launches, "hv_launches": hv_launches,
+           "vertex_launches": vx_launches, "peak_bytes": peak, "wall_s": wall,
            "metrics": metrics, "system": sysm, "join_wait_s": waited,
            "pre_full_map": kept.get("map")}
     if not solvers:
@@ -1994,9 +2170,11 @@ def stage_probe(sysm, ds, device, card: str) -> dict:
     rows.append(("_frame_ms", times["_frame_ms"], frame_dev,
                  sum(r[3] for r in rows)))
     for k, t, dev, eager in rows:
+        # a span of copies alone (output_pack) launches no kernel eagerly
+        share = f"{t / eager:.3f}" if eager > 0 else "no kernel"
         print(f"6c, {k}: probe {t:.3f} ms; its graph replayed alone under "
               f"the profiler {dev:.3f} ms of device activity (probe / that "
-              f"{t / dev:.3f}); eagerly {eager:.3f} ms ({t / eager:.3f}) "
+              f"{t / dev:.3f}); eagerly {eager:.3f} ms ({share}) "
               f"[{card}]")
     cover = total / times["_frame_ms"]
     print(f"6c, the spans sum to {total:.3f} ms, {cover:.3f} of _frame_ms "
@@ -3347,8 +3525,9 @@ def full_ba_graphs(ba: dict, device, card: str) -> dict:
     eager full_ba_inplace on copies of the map from before phase 5's full
     BA: each capture's record, wall ms per solve (the median of
     N_FULL_BA_REPS), the report's solve seconds and host launch calls per
-    solve each way, the costs and their relative gap, and the largest
-    refined pose gap."""
+    solve each way, the costs and their relative gap, the largest refined
+    pose gap, and each capture's edge Hessian and vertex-pass launches a
+    replay against their counts."""
     import copy
 
     from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
@@ -3377,6 +3556,8 @@ def full_ba_graphs(ba: dict, device, card: str) -> dict:
         calls, kernels, _ = _host_launches(
             lambda: full_ba_inplace(maps[0], cfg, device=device, graphs=g))
         rep = reps[-1]
+        n_types = sum(1 for x in rep["edges"].values() if x)
+        cg = rep["cg_iters"]
         out[name] = {"wall_ms": float(np.median(walls)),
                      "solve_s": float(np.median([r["t_solve_s"]
                                                  for r in reps])),
@@ -3414,6 +3595,21 @@ def full_ba_graphs(ba: dict, device, card: str) -> dict:
         raise RuntimeError(f"17a: {g['iters']} / {e['iters']} LM "
                            f"iterations, {len(recs)} captures of "
                            f"{len(graphs._calls)} graphs")
+    # each captured LM chunk records an edge launch per edge type with
+    # edges per CG step and a vertex pass per product and per
+    # preconditioner apply, for each of its iterations
+    per_replay = []
+    for r in recs:
+        iters = int(r["name"].split("iters=")[1].split()[0])
+        got = r["kernel_launches_per_replay"]
+        want = {"EdgeHessianKernel": n_types * cg * iters,
+                "VertexPassKernel": (2 * cg + 1) * iters}
+        per_replay.append(got)
+        if {k: got.get(k, 0) for k in want} != want:
+            raise RuntimeError(f"17a: {r['name']} records {got} launches a "
+                               f"replay, want {want}")
+    print(f"17a, launches a replay of each capture: {per_replay} [{card}]")
+    out["launches_per_replay"] = per_replay
     return out
 
 
@@ -3520,6 +3716,12 @@ def main() -> int:
               f"{now - t_phase[1]:.1f} s)")
         t_phase[0] = now
 
+    if "--edge-hessian" in sys.argv[1:]:
+        hv = edge_hessian_phase(device, card)
+        phase_done("3b (edge Hessian kernels against their plain version, "
+                   "timing)")
+        print(json.dumps({"edge_hessian": hv}))
+        return 0
     KERNEL.build()
     print(f"FAST kernel built and loaded in {KERNEL.build_seconds:.2f} s")
     time_joins()
@@ -3553,6 +3755,9 @@ def main() -> int:
     kern = time_pyramid(scene, device, card)
     kern_s = time_batched(scene, device, card, grays)
     phase_done("3 (kernel against its plain version, timing)")
+    hv = edge_hessian_phase(device, card)
+    phase_done("3b (edge Hessian kernels against their plain version, "
+               "timing)")
     path = main_path(scene, bench_config(), device, card)
     phase_done("4 (fused tracking path)")
     dense_ds = SyntheticDataset(scene, depth_map_factor=256.0, bf=387.5744)
@@ -3669,6 +3874,26 @@ def main() -> int:
         "bound_ms_s4": kern_s[N_STREAMS]["bound_ms"],
         "bound_ms_s6": kern_s[N_THROUGHPUT]["bound_ms"],
         "bound_by": kern["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "hessian_vector",
+        "route": "cuda",
+        "source": "vdo_slam_tpu_torch/csrc/edge_hessian.cu",
+        "replaces": None,
+        "launches_ba_path": ba["hv_launches"],
+        "vertex_launches_ba_path": ba["vertex_launches"],
+        "launches_wire_path": wire["hv_launches"],
+        "vertex_launches_wire_path": wire["vertex_launches"],
+        "launches_per_replay_full_graphs": full_graphs["launches_per_replay"],
+        "max_rel_err": hv["gap"],
+        "max_rel_err_precond": hv["gap_pre"],
+        "ms": hv["device_ms"],
+        "plain_ms": hv["plain_device_ms"],
+        "bound_ms": hv["bound_ms"],
+        "precond_ms": hv["pre_device_ms"],
+        "precond_plain_ms": hv["pre_plain_device_ms"],
+        "precond_bound_ms": hv["pre_bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]}))
     print(f"chip_smoke: {time.perf_counter() - t_phase[1]:.1f} s in all "

@@ -15,6 +15,15 @@ diagonal, the Schur pose blocks Hcc) within 1e-4 relative; costs within
 1e-5 relative; edge counts exact.  Whole solves: pose entries within 1e-4,
 points within 1e-3, final cost within 1e-4 of the starting cost, and the
 same number of LM iterations run.
+
+The edge Hessian-vector wrapper (vdo_slam_tpu_torch/ops/edge_hessian_cuda.py)
+takes its plain version on the CPU: that path is held to a dense J^T W J t
+(and J^T W J t + damp * t) assembled in float64 from the same blocks, on a
+small random graph of the full builder's shape with zero-weight padding
+edges at index 0, for each edge type alone, all six, and all but one left
+empty, within 1e-5 relative to each output's largest entry (float32 sums
+against float64); the block-Jacobi apply likewise; and its host-side
+checks raise on wrong dtypes and shapes.
 """
 
 import dataclasses
@@ -25,8 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+import hv_graphs
 from vdo_slam_tpu.backend import factor_graph as J
 from vdo_slam_tpu_torch.backend import factor_graph as T
+from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -414,3 +425,109 @@ def test_upload_and_fetch_roundtrip():
     assert out["b"][0] == 7 and out["b"][0].dtype == np.int64
     np.testing.assert_array_equal(out["b"][1][0], graph["obs_w"])
     assert out["c"] == "x"
+
+
+# --------------------------------------------------------------------------
+# the edge Hessian-vector wrapper's plain path against float64
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def hv_graph():
+    """A small random graph of the full builder's shape on the CPU (with
+    zero-weight padding edges at index 0 and at the last sorted index),
+    its variables, a random tangent and a positive damping tangent."""
+    g, v = hv_graphs.upload(*hv_graphs.make_graph(seed=3), "cpu")
+    for edge in ("obs", "odo", "smo", "ter", "alt"):
+        w = getattr(g, edge + "_w")
+        assert float(w[-1]) == 0.0 and float(w.max()) > 0 or edge == "alt"
+    assert int(g.obs_pose[-1]) == int(g.ter_mot[-1]) == 0
+    t = hv_graphs.random_tangent(v, seed=2)
+    r = hv_graphs.random_tangent(v, seed=5)
+    damp = T.Tangent(*[x.abs() + 0.1 for x in (r.poses, r.motions, r.points)])
+    return g, t, damp
+
+
+HV_CASES = [(e,) for e in T.EDGE_TYPES] + [
+    tuple(T.EDGE_TYPES), tuple(e for e in T.EDGE_TYPES if e != "ter")]
+
+
+@pytest.mark.parametrize("edges", HV_CASES,
+                         ids=list(T.EDGE_TYPES) + ["all", "ter_empty"])
+def test_hessian_vector_plain_equals_dense_float64(hv_graph, edges):
+    g, t, damp = hv_graph
+    g = hv_graphs.keep_only(g, edges)
+    blocks, weights = hv_graphs.random_blocks(g, seed=1)
+    for d in (None, damp):
+        got = EH.hessian_vector(g, blocks, weights, t, d)
+        want = hv_graphs.dense_product(g, blocks, weights, t, d)
+        for a, b in zip(got, want, strict=True):
+            assert a.dtype == torch.float32
+            close(a, b.numpy(), 1e-5)
+        # the solver's product is the wrapper's
+        mt = T._matvec(g, blocks, weights, t, d)
+        for k, a in zip(EH.KINDS, got):
+            assert torch.equal(getattr(mt, k), a)
+
+
+def test_block_jacobi_plain_equals_float64(hv_graph):
+    _, t, _ = hv_graph
+    gen = torch.Generator().manual_seed(7)
+    # the inverted blocks in a batched inverse's column-major layout
+    Dinv = tuple(torch.randn(x.shape[0], w, w, generator=gen).transpose(-1, -2)
+                 for x, w in ((t.poses, 6), (t.motions, 6), (t.points, 3)))
+    got = EH.block_jacobi(Dinv, t)
+    for a, A, x in zip(got, Dinv, (t.poses, t.motions, t.points)):
+        close(a, (A.double() @ x.double()[..., None])[..., 0].numpy(), 1e-5)
+    assert all(torch.equal(a, getattr(T._apply_precond(Dinv, t), k))
+               for a, k in zip(got, EH.KINDS))
+
+
+def _bad(g, blocks, weights, t, damp, what):
+    """One argument of hessian_vector spoiled."""
+    blocks, weights = dict(blocks), dict(weights)
+    if what == "weight_float64":
+        weights["obs"] = weights["obs"].double()
+    elif what == "block_width":
+        blocks["Jo_pose"] = blocks["Jo_pose"][..., :5]
+    elif what == "block_edges":
+        blocks["Jt_mot"] = blocks["Jt_mot"][1:]
+    elif what == "index_int32":
+        g = dataclasses.replace(g, obs_pose=g.obs_pose.int())
+    elif what == "index_length":
+        g = dataclasses.replace(g, ter_cur=g.ter_cur[:-1])
+    elif what == "tangent_width":
+        t = T.Tangent(t.poses, t.motions, torch.zeros(t.points.shape[0], 4))
+    elif what == "tangent_float64":
+        t = T.Tangent(t.poses.double(), t.motions, t.points)
+    elif what == "damp_rows":
+        damp = T.Tangent(damp.poses[1:], damp.motions, damp.points)
+    elif what == "meta_device":
+        t = T.Tangent(*[x.to("meta") for x in (t.poses, t.motions,
+                                                 t.points)])
+    return g, blocks, weights, t, damp
+
+
+@pytest.mark.parametrize("what,err", [
+    ("weight_float64", TypeError), ("block_width", ValueError),
+    ("block_edges", ValueError), ("index_int32", TypeError),
+    ("index_length", ValueError), ("tangent_width", ValueError),
+    ("tangent_float64", TypeError), ("damp_rows", ValueError),
+    ("meta_device", ValueError)])
+def test_hessian_vector_rejects(hv_graph, what, err):
+    g, t, damp = hv_graph
+    blocks, weights = hv_graphs.random_blocks(g, seed=1)
+    with pytest.raises(err):
+        EH.hessian_vector(*_bad(g, blocks, weights, t, damp, what))
+
+
+def test_block_jacobi_rejects_a_wrong_block(hv_graph):
+    _, t, _ = hv_graph
+    good = (torch.zeros(t.poses.shape[0], 6, 6),
+            torch.zeros(t.motions.shape[0], 6, 6),
+            torch.zeros(t.points.shape[0], 3, 3))
+    with pytest.raises(ValueError):
+        EH.block_jacobi((good[0], good[1], good[2][1:]), t)
+    with pytest.raises(TypeError):
+        EH.block_jacobi((good[0].double(), good[1], good[2]), t)
+    assert all(float(x.abs().max()) == 0.0
+               for x in EH.block_jacobi(good, t))

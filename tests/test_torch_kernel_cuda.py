@@ -26,8 +26,11 @@ window solver "lm"'s graph against their eager solves (cost within 1e-6
 relative), the stage probe's spans against the profiler's device time of
 each span's graph, each host Tracker stage's replay against its eager
 call on the same inputs, and the small linear solves of the step and the
-window solve captured and replayed bit-equal to the eager call.  Every
-test here skips without a CUDA device.  This file imports no JAX, so it
+window solve captured and replayed bit-equal to the eager call, and the
+edge Hessian-vector kernels (csrc/edge_hessian.cu) against their plain
+version on the card at the 1,028-frame refine's caps, at a window's shapes
+and with F and M above the shared-memory budget, with the launches a
+graphed full BA counts.  Every test here skips without a CUDA device.  This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
@@ -43,7 +46,11 @@ work: atol = 0 against the CPU for every output of every layout.  The BA solves 
 on graphs the port's builders make from a map the port tracked on the
 CPU) sum with float atomics on the card: pose entries within 1e-4, points
 within 1e-3 m plus 2e-4 of the coordinate, final costs within 1e-4 of the
-starting cost, as the JAX-vs-port CPU tests hold them.
+starting cost, as the JAX-vs-port CPU tests hold them.  The edge Hessian
+product H t (and H t + damp * t, Dinv r) is held to its plain version on
+the card within 1e-5 relative to each output's largest entry: both sum in
+float32, the kernels with float atomics in another order (and another from
+run to run), after warp and shared-memory partial sums.
 """
 
 import dataclasses
@@ -1208,3 +1215,116 @@ def test_graph_setup_spans_are_its_record():
     assert call.record["warm_s"] == warm.wall_ns / 1e9
     assert call.record["capture_s"] == cap.wall_ns / 1e9
     assert warm.end_ns <= cap.start_ns
+
+
+# --------------------------------------------------------------------------
+# the edge Hessian-vector kernels (csrc/edge_hessian.cu)
+# --------------------------------------------------------------------------
+
+HV_RTOL = 1e-5
+# bytes of shared rows a block of the edge kernel may hold (HV_SMEM_BUDGET
+# of csrc/edge_hessian.cu): 24 B a pose or motion row
+HV_SMEM_BUDGET = 114688
+
+
+def _hv_case(case: str):
+    """(graph, variables) on the card: about a 1,028-frame drive's graph at
+    the refine's caps, a window's, or one with F and M above the
+    shared-memory budget."""
+    import hv_graphs
+
+    shapes = {
+        "refine_caps": dict(hv_graphs.REFINE_SHAPE,
+                            caps=hv_graphs.REFINE_CAPS),
+        "window": dict(F=20, objects=3, per=40, n_static=400, max_len=20),
+        "above_smem": dict(F=5000, objects=3, per=4, n_static=3000,
+                           max_len=30),
+    }[case]
+    return hv_graphs.upload(*hv_graphs.make_graph(seed=11, **shapes), "cuda")
+
+
+def _rel_gap(got, want) -> float:
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("case", ["refine_caps", "window", "above_smem"])
+def test_edge_hessian_kernels_equal_plain(case):
+    """hessian_vector and block_jacobi on the card against
+    their plain versions on the card, on the blocks and weights that
+    factor_graph._linearize gives (their own strides: a transposed view, an
+    expanded identity) and the damped block-Jacobi inverses; one vertex
+    pass and one edge launch per edge type with edges per product."""
+    import hv_graphs
+
+    from vdo_slam_tpu_torch.backend import factor_graph as fg
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+
+    g, v = _hv_case(case)
+    F, M, P = v.poses.shape[0], v.motions.shape[0], v.points.shape[0]
+    fits = {e: 24 * n <= HV_SMEM_BUDGET for e, n in (("obs", F), ("ter", M))}
+    assert fits == ({"obs": False, "ter": False} if case == "above_smem"
+                    else {"obs": True, "ter": True})
+    _, weights, blocks = fg._linearize(g, v, fg.LMParams())
+    assert blocks["Jt_prev"].stride(0) == 0
+    assert not blocks["Jo_pt"].is_contiguous()
+    D = fg._block_diag(g, blocks, weights, F, M, P)
+    damp = fg._damped_diag(D, torch.full((), 1e-4, device="cuda"))
+    Dinv = fg._invert_precond(tuple(
+        x + torch.diag_embed(d)
+        for x, d in zip(D, (damp.poses, damp.motions, damp.points))))
+    t = hv_graphs.random_tangent(v, seed=2)
+    n_types = sum(1 for e in EH.INCIDENCE if weights[e].shape[0])
+    launches, vertex = EH.KERNEL.launches, EH.VERTEX.launches
+    plain = EH.matvec_plain(g, blocks, weights, t)
+    got = EH.hessian_vector(g, blocks, weights, t)
+    torch.cuda.synchronize()
+    assert _rel_gap(got, plain) <= HV_RTOL
+    got = EH.hessian_vector(g, blocks, weights, t, damp)
+    assert _rel_gap(got, EH.damped_plain(plain, damp, t)) <= HV_RTOL
+    got = EH.block_jacobi(Dinv, t)
+    assert _rel_gap(got, EH.precond_plain(Dinv, t)) <= HV_RTOL
+    torch.cuda.synchronize()
+    assert EH.KERNEL.launches - launches == 2 * n_types == 12
+    assert EH.VERTEX.launches - vertex == 3
+
+
+def test_graphed_refine_counts_its_hv_launches(tracked_map):
+    """full_ba_inplace from its graphs (warmed at small full_* caps) goes
+    through the edge kernel: its counter full.hv_launches and the kernel's
+    `launches` both read edge types x cg_iters x iters_run, each capture
+    records edge types x cg_iters x its chunk's iterations, and the eager
+    solve counts the same."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
+                                                   full_ba_inplace,
+                                                   warmup_full_ba)
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+    from vdo_slam_tpu_torch.utils import profiling
+
+    m, cfg = tracked_map
+    cfg = cfg.replace(backend=dataclasses.replace(
+        cfg.backend, full_obs_cap=16384, full_ter_cap=8192,
+        full_point_cap=16384, full_motion_cap=64, full_smo_cap=64))
+    graphs = FullBAGraphs("cuda")
+    warmup_full_ba(cfg, m.num_frames, graphs)
+    reps = []
+    for gr in (graphs, None):
+        before = EH.KERNEL.launches
+        with profiling.recording() as rec:
+            rep = full_ba_inplace(copy.deepcopy(m), cfg, device="cuda",
+                                  graphs=gr)
+        n_types = sum(1 for n in rep["edges"].values() if n)
+        want = n_types * rep["cg_iters"] * rep["iters_run"]
+        assert want > 0 and EH.KERNEL.launches - before == want
+        assert [c.value for c in rec.counted("full.hv_launches")] == [want]
+        reps.append(rep)
+    assert set(reps[0]["chunk_modes"]) == {"replay"}
+    assert set(reps[1]["chunk_modes"]) == {"eager"}
+    for r in graphs.records():
+        iters = int(r["name"].split("iters=")[1].split()[0])
+        assert r["kernel_launches_per_replay"]["EdgeHessianKernel"] == (
+            n_types * reps[0]["cg_iters"] * iters)
+        assert r["kernel_launches_per_replay"]["VertexPassKernel"] == (
+            (2 * reps[0]["cg_iters"] + 1) * iters)

@@ -7,7 +7,10 @@ EdgeSE3, EdgeSE3PointXYZ, LandmarkMotionTernaryEdge, EdgeSE3Altitude;
 Levenberg with a Huber kernel).  One LM iteration is a handful of gathers,
 batched small products and `index_add_` segment sums; the full graph's
 normal equations are solved matrix-free with block-Jacobi PCG, the window
-graph's by a dense Schur complement.
+graph's by a dense Schur complement.  On a card PCG's product H t and its
+preconditioner's apply are hand-written kernels, one launch per edge type
+and one per-vertex pass (ops/edge_hessian_cuda.py); on the CPU they are
+the plain ops.
 
 What changes with eager PyTorch:
   * `Graph` and `Variables` are dataclasses of tensors; the builders fill
@@ -51,6 +54,10 @@ from torch.func import jacfwd, vmap
 
 from ..devices import device_list
 from ..geometry import se3
+from ..ops.edge_hessian_cuda import INCIDENCE as _INCIDENCE
+from ..ops.edge_hessian_cuda import block_jacobi, hessian_vector
+from ..ops.edge_hessian_cuda import jtu as _jtu
+from ..ops.edge_hessian_cuda import seg as _seg
 from ..utils.cuda_graph import copy_out
 
 Tensor = torch.Tensor
@@ -436,47 +443,12 @@ def _linearize(g: Graph, v: Variables, p: LMParams):
     return resid, weights, blocks
 
 
-def _seg(x, idx, n):
-    """Segment sum of x's rows into n rows (jax.ops.segment_sum)."""
-    return x.new_zeros((n,) + tuple(x.shape[1:])).index_add_(0, idx, x)
-
-
-def _jx(J, x):
-    return torch.einsum("eij,ej->ei", J, x)
-
-
-def _jtu(J, u):
-    return torch.einsum("eij,ei->ej", J, u)
-
-
-# (Jacobian block, graph index field, variable kind) of every edge-vertex
-# incidence, grouped by edge type: the rows that _matvec, _gradient and
-# _block_diag sum over
-_INCIDENCE = {
-    "obs": (("Jo_pose", "obs_pose", "poses"), ("Jo_pt", "obs_point", "points")),
-    "ter": (("Jt_prev", "ter_prev", "points"), ("Jt_cur", "ter_cur", "points"),
-            ("Jt_mot", "ter_mot", "motions")),
-    "odo": (("Jd_a", "odo_a", "poses"), ("Jd_b", "odo_b", "poses")),
-    "smo": (("Js_a", "smo_a", "motions"), ("Js_b", "smo_b", "motions")),
-    "pri": (("Jp", "pri_idx", "poses"),),
-    "alt": (("Ja", "alt_mot", "motions"),),
-}
-
-
-def _matvec(g: Graph, blocks, weights, t: Tangent) -> Tangent:
-    """H t = J^T W J t, edge-wise."""
-    out = {k: torch.zeros_like(getattr(t, k))
-           for k in ("poses", "motions", "points")}
-    for edge, inc in _INCIDENCE.items():
-        u = None
-        for J, idx, kind in inc:
-            ju = _jx(blocks[J], getattr(t, kind)[getattr(g, idx)])
-            u = ju if u is None else u + ju
-        u = u * weights[edge][:, None]
-        for J, idx, kind in inc:
-            out[kind] = out[kind] + _seg(_jtu(blocks[J], u), getattr(g, idx),
-                                         out[kind].shape[0])
-    return Tangent(**out)
+def _matvec(g: Graph, blocks, weights, t: Tangent,
+            damp: Tangent | None = None) -> Tangent:
+    """H t = J^T W J t, edge-wise, plus damp * t where given: the edge
+    Hessian kernels on a card, their plain version on the CPU
+    (ops/edge_hessian_cuda.py)."""
+    return Tangent(*hessian_vector(g, blocks, weights, t, damp))
 
 
 def _gradient(g: Graph, blocks, weights, resid, F, M, P) -> Tangent:
@@ -521,10 +493,7 @@ def _invert_precond(D):
 
 
 def _apply_precond(Dinv, t: Tangent) -> Tangent:
-    Dp, Dm, Dx = Dinv
-    return Tangent(torch.einsum("nij,nj->ni", Dp, t.poses),
-                   torch.einsum("nij,nj->ni", Dm, t.motions),
-                   torch.einsum("nij,nj->ni", Dx, t.points))
+    return Tangent(*block_jacobi(Dinv, t))
 
 
 def _pcg(matvec, precond, b: Tangent, iters: int) -> Tangent:
@@ -637,11 +606,10 @@ def _lm(shards: list[Graph], v0: Variables, p: LMParams, lam0=None):
             for x, dd in zip(D, (damp.poses, damp.motions, damp.points))))
 
         def mv(t):
-            ht = _psum([_matvec(sh, b, w, t.to(d)) for sh, d, (_, w, b)
-                        in zip(shards, devs, lins)], dev)
-            return Tangent(ht.poses + damp.poses * t.poses,
-                           ht.motions + damp.motions * t.motions,
-                           ht.points + damp.points * t.points)
+            # the damping joins the first shard's product, on dev
+            return _psum([_matvec(sh, b, w, t.to(d), damp if i == 0 else None)
+                          for i, (sh, d, (_, w, b))
+                          in enumerate(zip(shards, devs, lins))], dev)
 
         delta = _pcg(mv, lambda t: _apply_precond(D_prec, t),
                      grad.scale(-1.0), p.cg_iters)

@@ -38,6 +38,7 @@ import torch
 
 from ..config import VDOConfig
 from ..devices import device_list
+from ..ops import edge_hessian_cuda
 from ..pipeline.map_state import MapState
 from ..utils import profiling
 from ..utils.cuda_graph import GraphedCall, StaticTree, tree_flatten
@@ -234,7 +235,10 @@ def full_ba_inplace(m: MapState, cfg: VDOConfig, iters: int | None = None,
     full.writeback, and it counts the graph's sizes (full.<caps key>,
     real, and full.<caps key>_padded), full.caps_held, full.iters_run,
     full.cg_iters (CG iterations per LM iteration) and full.chunk (how
-    each chunk ran, unit: its index)."""
+    each chunk ran, unit: its index); on a card also full.hv_launches, the
+    edge Hessian kernel's launches while the solve ran (one per edge type
+    with edges, per CG step, per shard: edge types x cg_iters x iters_run
+    on one device)."""
     devices = device_list(devices, device)
     if graphs is not None and [_card(d) for d in graphs.devices] != [
             _card(d) for d in devices]:
@@ -258,6 +262,7 @@ def _full_ba(m: MapState, cfg: VDOConfig, iters, devices,
     profiling.count("full.cg_iters", p.cg_iters)
     chunk_times = []
     modes = []
+    hv0 = edge_hessian_cuda.KERNEL.launches
     rec = profiling.ACTIVE
     open_chunk = []
 
@@ -303,6 +308,9 @@ def _full_ba(m: MapState, cfg: VDOConfig, iters, devices,
                  info["stats0"], info["stats"]))
     t_solve = time.perf_counter() - t0
     profiling.count("full.iters_run", info["iters_run"])
+    if devices[0].type == "cuda":
+        profiling.count("full.hv_launches",
+                        edge_hessian_cuda.KERNEL.launches - hv0)
     for i, mode in enumerate(modes):
         profiling.count("full.chunk", mode, i)
     t0 = time.perf_counter()

@@ -10,29 +10,24 @@ the Pallas kernel vdo_slam_tpu/ops/fast_pallas.py:_fast_kernel.
 
 The shared library is compiled with nvcc at first use, from the source in
 the package, into `vdo_slam_tpu_torch/_build/` (named by a hash of the
-source, so an edited source rebuilds), and bound with ctypes.
+source, so an edited source rebuilds; ops/nvcc_build.py), and bound with
+ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import time
 from pathlib import Path
 
 import torch
 
+from . import nvcc_build
+
 Tensor = torch.Tensor
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "fast_score.cu"
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_LEVELS = 16  # FAST_MAX_LEVELS of the source
 TILE = 32        # side of a block's output tile in the source
 
@@ -75,18 +70,6 @@ def pyramid_layout(shapes, S: int):
     return rows, tiles, off
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the FAST "
-                       "kernel is built from source at first use")
-
-
 class FastScoreKernel:
     """The built kernel and its launch count.
 
@@ -108,32 +91,18 @@ class FastScoreKernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha1(_SOURCE.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return _BUILD_DIR / f"libfast_score_{digest[:12]}.so"
+        return nvcc_build.library_path(_SOURCE, nvcc_build.NVCC_FLAGS,
+                                        "fast_score")
 
     def build(self):
         """Compile (if the library for this source is missing) and load."""
         if self._fn is not None:
             return self._fn
         t0 = time.time_ns()
-        lib_path = self.library_path()
-        if not lib_path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                    capture_output=True, text=True)
-                self.build_log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-                os.replace(tmp, lib_path)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+        lib_path, log = nvcc_build.build_library(
+            _SOURCE, nvcc_build.NVCC_FLAGS, "fast_score")
+        if log:
+            self.build_log = log
         lib = ctypes.CDLL(str(lib_path))
         lib.fast_pyramid_sizeof.restype = ctypes.c_int
         if lib.fast_pyramid_sizeof() != ctypes.sizeof(_Pyramid):

@@ -33,8 +33,9 @@ static output buffers, so the tests reach the buffer handling, the
 overwriting of outputs included, that the card runs.
 
 A kernel launched while its stream captures is recorded, not launched:
-ops/fast_cuda.py counts it in `captured`, not in `launches`, and each
-replay adds the launches its capture recorded to `launches`.
+ops/fast_cuda.py and ops/edge_hessian_cuda.py count it in `captured`, not
+in `launches`, and each replay adds the launches its capture recorded to
+`launches`.
 
 A capture or replay that fails raises.  Nothing falls back to eager
 execution.  Python's garbage collector is off during a capture: a graph
@@ -52,13 +53,14 @@ import time
 import numpy as np
 import torch
 
+from ..ops import edge_hessian_cuda
 from ..ops.fast_cuda import KERNEL
 from . import profiling
 
 Tensor = torch.Tensor
 
 # the kernels written by hand whose wrappers count launches
-KERNELS = (KERNEL,)
+KERNELS = (KERNEL, edge_hessian_cuda.KERNEL, edge_hessian_cuda.VERTEX)
 # one capture at a time in the process: a capture on a solve thread and one
 # on the tracking thread never overlap
 _CAPTURE_LOCK = threading.Lock()
