@@ -140,14 +140,6 @@ Phases, in order (any failure raises and exits nonzero):
      InMemoryPackedDataset of the same frames, and System(mode="fused")
      over the directory against the same over the in-memory frames (poses
      within phase 7's bounds), with the reader's host ms per frame;
-  14. the port's probe tools (vdo_slam_tpu_torch/tools/), in this process
-     on the scene made above: probe_loop.main(n_frames=24) (upload, the
-     host's dispatch and the device's time per frame of step_chunk,
-     launches per frame, run_sequence with window BA off and on) and
-     probe_chunk.main(n_frames=24) (per chunk: submit, grab_chunk,
-     stage-wait; the drain, ms per frame, then run_sequence on the same
-     System).  Checks: every phase time finite and >= 0, every drive
-     archiving the frames it was given, one FAST launch per frame stepped;
   15. the port's driver entry points (vdo_slam_tpu_torch/graft_entry.py,
      the counterpart of __graft_entry__.py): entry()'s step once (one FAST
      launch, a finite pose); dryrun_multichip(8) over cuda:0 eight times
@@ -170,9 +162,9 @@ Phases, in order (any failure raises and exits nonzero):
      counts, and equal object estimates over the run; one S = 4 frame's
      host launch calls each way (at most 50 graphed, one FAST kernel);
      (c) the S = 1 chunk steps on the same staged frames each way:
-     dispatch and device ms per frame (probe_loop's method), kernels and
-     host launch calls per frame (at most 50 graphed), the FAST kernels
-     the profiler saw against KERNEL.launches, peak memory; (d) each
+     dispatch and device ms per frame, kernels and host launch calls per
+     frame (at most 50 graphed), the FAST kernels the profiler saw
+     against KERNEL.launches, peak memory; (d) each
      window-solve tier (builders.WINDOW_TIERS) on a window of phase 5's
      map, graphed against eager, with the solver "schur" (the cost within
      1e-5 relative) and the solver "lm" (within 1e-6): the poses within
@@ -194,7 +186,7 @@ Phases, in order (any failure raises and exits nonzero):
      each way, and each stage graph's record.  The bench's --hard (13a)
      prints its full BA's solve from its graphs.  The script prints its
      total seconds before the kernels' line.
-Phases 5-7, 12b, 13a, 13b and 14 print the seconds the tracker's thread
+Phases 5-7, 12b, 13a and 13b print the seconds the tracker's thread
 waited in flush for window solves still running (chip_smoke wraps
 FusedTracker._join_ba to time it) and fail on a tracker whose
 ba_failures is not 0.
@@ -460,8 +452,6 @@ N_BA_FRAMES = 100
 N_STREAMS, N_STREAM_FRAMES = 4, 40   # bench.py --streams 4 (bench.py:40, 110)
 N_THROUGHPUT = 6                      # bench.py --throughput (bench.py:451)
 PHASE13_BUDGET_S = 120
-N_PROBE_FRAMES = 24                   # phase 14: frames per probe drive
-PHASE14_BUDGET_S = 120
 N_GRAFT = 8               # phase 15: dryrun_multichip(8) as __graft_entry__
 PHASE15_BUDGET_S = 120
 STREAM_T_TOL_M, STREAM_R_TOL_DEG = 1e-3, 0.01
@@ -2925,53 +2915,6 @@ def packed_dir(seq, device, card: str) -> dict:
     return {"launches": la, "row_ms": row_ms, "pose_gap": (dt, dr)}
 
 
-def probes(device, card: str) -> dict:
-    """Phase 14: probe_loop and probe_chunk (vdo_slam_tpu_torch/tools/) at
-    N_PROBE_FRAMES frames on the bench's scene, made once per process, with
-    their numbers on lines that begin with the card.  Fails on a phase time
-    that is negative or NaN, a drive that archives other than the frames it
-    was given, or FAST launches other than one per frame stepped."""
-    from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
-    from vdo_slam_tpu_torch.tools import probe_chunk, probe_loop
-
-    out = {}
-    for name, tool in (("probe_loop", probe_loop),
-                       ("probe_chunk", probe_chunk)):
-        KERNEL.launches = 0
-        JOIN_WAIT.update(s=0.0, joins=0)
-        t0 = time.perf_counter()
-        res = tool.main(n_frames=N_PROBE_FRAMES, device=device)
-        secs = time.perf_counter() - t0
-        launches = KERNEL.launches
-        join_wait(name, card)
-        print(f"{card} | {name} in {secs:.1f} s: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in res.items() if isinstance(v, float)))
-        for d in res["drives"]:
-            print(f"{card} | {name}, {d['what']}: {d['archived']} of "
-                  f"{d['given']} frames archived, {d['steps']} stepped, "
-                  f"ba_failures {d['ba_failures']}")
-        if "chunk_ms" in res:
-            print(f"{card} | {name}, per chunk (submit, grab_chunk, "
-                  f"stage-wait ms): " + "; ".join(
-                      ", ".join(f"{x:.3f}" for x in row)
-                      for row in res["chunk_ms"]))
-        print(f"{card} | {name}: {launches} FAST launches for "
-              f"{res['steps']} frames stepped")
-        probe_loop.check_phases(res, name)   # no time negative or NaN
-        for d in res["drives"]:
-            if d["archived"] != d["given"]:
-                raise RuntimeError(f"{name}, {d['what']}: {d['archived']} "
-                                   f"frames archived, {d['given']} given")
-            if d["ba_failures"]:
-                raise RuntimeError(f"{name}, {d['what']}: ba_failures "
-                                   f"{d['ba_failures']}")
-        if launches != res["steps"]:
-            raise RuntimeError(f"{name}: {launches} FAST launches for "
-                               f"{res['steps']} frames stepped")
-        out[name] = dict(res, launches=launches, seconds=secs)
-    return out
-
-
 # The JAX package's own dry run, leg (c), from MULTICHIP_r05.json (JAX on a
 # virtual mesh of 8 CPU devices): accuracy figures, not times.
 JAX_REF_GRAFT = {"cost0": 0.1849, "cost": 0.09363, "cost_ref": 0.09363,
@@ -3264,15 +3207,14 @@ def graphs_dispatch(cfg, pds, device, card: str) -> dict:
     """Phase 16c: the fused tracker's chunk steps (bench config, chunks of
     4, tpu_fast's wire) on the same staged frames, graphed (step_chunk's
     replays) and eager (the same frames through make_frame_step op by op,
-    as step_chunk ran before the graphs), in one process: probe_loop's
-    dispatch_ms_frame (host time to queue, no sync) and device_ms_frame
-    (probe_loop.device_profile), host launch calls and kernels per frame,
-    the FAST kernel's profiler count against KERNEL.launches, and peak
-    memory each way."""
+    as step_chunk ran before the graphs), in one process: dispatch ms per
+    frame (host time to queue, no sync) and device ms per frame (every
+    device activity under torch.profiler), host launch calls and kernels
+    per frame, the FAST kernel's profiler count against KERNEL.launches,
+    and peak memory each way."""
     from vdo_slam_tpu_torch.ops.fast_cuda import KERNEL
     from vdo_slam_tpu_torch.pipeline.draws import UniformDraws
     from vdo_slam_tpu_torch.pipeline.fused import FusedTracker, pack_outputs
-    from vdo_slam_tpu_torch.tools.probe_loop import device_profile
 
     tr = FusedTracker(cfg, device=device)
     C = tr.chunk
@@ -3312,7 +3254,8 @@ def graphs_dispatch(cfg, pds, device, card: str) -> dict:
         disp = (time.perf_counter() - t0) / (GRAPH_DISPATCH_CHUNKS * C) * 1e3
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        dev_ms, kernels = device_profile(lambda: run(2), device)
+        _, kernels, dev_ms, _ = _profiled(lambda: run(2), f"16c {name}",
+                                          host_ops=False)
         before = KERNEL.launches
         calls, prof_kernels, fast = _host_launches(lambda: run(1))
         counted = KERNEL.launches - before
@@ -3804,16 +3747,6 @@ def main() -> int:
     phase_done("13c (pack_sequence and PackedDataset)")
     print(f"phase 13: {time.perf_counter() - t13:.1f} s (budget "
           f"{PHASE13_BUDGET_S} s)")
-    t14 = time.perf_counter()
-    probed = probes(device, card)
-    print(f"phase 14: {time.perf_counter() - t14:.1f} s (budget "
-          f"{PHASE14_BUDGET_S} s)")
-    loop_ms = probed["probe_loop"]["device_ms_frame"]
-    print(f"6c's _frame_ms {probe['times']['_frame_ms']:.3f} against "
-          f"probe_loop's device_ms_frame {loop_ms:.3f} (the kernels' summed "
-          f"time per graphed frame): "
-          f"{probe['times']['_frame_ms'] / loop_ms:.3f}x [{card}]")
-    phase_done("14 (probe_loop and probe_chunk)")
     t15 = time.perf_counter()
     graft = graft_entry_phase(device, card)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s (budget "
@@ -3850,8 +3783,6 @@ def main() -> int:
         "launches_hard_path": hard["launches"],
         "launches_throughput_path": thr["launches"],
         "launches_packed_dir_path": pdir["launches"],
-        "launches_probe_loop": probed["probe_loop"]["launches"],
-        "launches_probe_chunk": probed["probe_chunk"]["launches"],
         "launches_graft_entry": graft["entry_launches"],
         "launches_dryrun": graft["launches"],
         "launches_graphs_dispatch": graphs["dispatch"]["graphed"][

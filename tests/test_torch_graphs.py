@@ -12,7 +12,7 @@ eagerly, and are held here to the eager functions called by hand.
   * what a caller holds (a report, a state, a chunk's output vectors, the
     archive) unchanged by the next step: the static outputs are copied out;
   * a checkpoint resumed mid-run against the uninterrupted run;
-  * probe_loop's drive, which threads its own state through step_chunk,
+  * step_chunk with a caller's own state, threaded chunk after chunk,
     against the tracker's own drive;
   * StaticTree's one-copy load of a snapshot and its writes that read
     the buffers they write.
@@ -337,11 +337,11 @@ def test_resume_mid_run_equals_uninterrupted(tiny_ds, tmp_path):
     _assert_states_equal(resumed.tracker.state, whole.tracker.state)
 
 
-def test_probe_loop_drive_equals_tracker_drive(tiny_ds):
-    """probe_loop's drive (tools/probe_loop.py: `state = tr.state`, then
-    `state, vecs = tr.step_chunk(state, ...)` chunk after chunk) against
-    the tracker's own chunk steps (grab_chunk's), and a foreign state
-    handed to step_chunk against the same state stepped by hand."""
+def test_step_chunk_with_callers_state_equals_tracker_drive(tiny_ds):
+    """A caller's drive (`state = tr.state`, then `state, vecs =
+    tr.step_chunk(state, ...)` chunk after chunk) against the tracker's own
+    chunk steps (grab_chunk's), and a foreign state handed to step_chunk
+    against the same state stepped by hand."""
     cfg = _tiny_cfg(fused_chunk=4, **WIRE)
     own, probe = (FusedTracker(cfg, device="cpu") for _ in range(2))
     staged = [own.device_inputs_chunk([tiny_ds[i + k] for k in range(4)])

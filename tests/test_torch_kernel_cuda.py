@@ -895,11 +895,11 @@ def test_full_ba_graph_matches_eager(tracked_map):
 def test_system_refine_replays_after_its_warmup(tracked_map):
     """System.warmup_refine for the archive's length, then System.refine:
     every chunk replays a graph, the caps hold, and the objective is the
-    plain reference's float64 one (eval/plain_full_batch.py) within 1e-4
-    relative."""
+    plain reference's float64 one (benchmark/full_batch_reference.py)
+    within 1e-4 relative."""
     import copy
 
-    from vdo_slam_tpu_torch.eval import plain_full_batch as ref
+    from benchmark import full_batch_reference as ref
     from vdo_slam_tpu_torch.pipeline import System
 
     m, cfg = tracked_map

@@ -1,17 +1,12 @@
-"""The port's FusedTracker.step_chunk, its probe tools (probe_loop,
-probe_chunk, capture_extras in vdo_slam_tpu_torch/tools/) and the bench's
-scene cache on disk.
+"""The port's FusedTracker.step_chunk and the bench's scene cache on disk.
 
-On the CPU at 320x96 (bench.py's camera sees trackable points there, not
-at 96x64): step_chunk against the tracker's step called frame by frame,
+On the CPU: step_chunk against the tracker's step called frame by frame,
 bit-equal; the chunked drive's archive against the frame-by-frame drive's;
-both probes' phases finite and non-negative and every drive archiving the
-frames it was given; capture_extras with its bench processes stubbed; the
-scene cache loaded, not made, on the second call; and the three tools and
-the cache load without jax.
+the scene cache (at 320x96, where bench.py's camera sees trackable points)
+loaded, not made, on the second call; and the port's tools and the cache
+load without jax.
 """
 
-import json
 import subprocess
 import sys
 import tempfile
@@ -27,11 +22,8 @@ from vdo_slam_tpu_torch.io import synthetic
 from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
 from vdo_slam_tpu_torch.pipeline import draws as draws_mod
 from vdo_slam_tpu_torch.pipeline.fused import FusedTracker, pack_outputs
-from vdo_slam_tpu_torch.tools import capture_extras, probe_chunk, probe_loop
 
 REPO = Path(__file__).resolve().parent.parent
-SMALL = dict(width=320, height=96)
-N_SCENE = 16      # 8 warm frames, 4 probed, 4 for probe_chunk's last drive
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -112,133 +104,6 @@ def test_grab_chunk_archive_equals_frame_drive(tiny_ds):
                                       err_msg=key)
 
 
-# ---- the probes
-
-
-def _check_probe(out, tmp_tempdir, work):
-    for k, v in out.items():
-        if isinstance(v, float):
-            assert np.isfinite(v), k
-            assert v >= 0.0 or k.startswith("gap"), (k, v)
-    for d in out["drives"]:
-        assert d["archived"] == d["given"] == d["steps"], d
-    assert out["device"] == "cpu" and out["chunk"] == 4
-    # nothing written but the scene cache
-    assert not list(work.iterdir())
-    assert {p.name for p in tmp_tempdir.iterdir()} <= {
-        Path(bench.scene_cache_path(N_SCENE, hard=False, **SMALL)).name}
-
-
-def test_probe_loop_on_cpu(tmp_tempdir, tmp_path, monkeypatch):
-    work = tmp_path / "work"
-    work.mkdir()
-    monkeypatch.chdir(work)
-    before = sorted(p.name for p in REPO.iterdir())
-    out = probe_loop.main(n_frames=4, device="cpu", scene_frames=N_SCENE,
-                          **SMALL)
-    for k in ("upload_ms_frame", "dispatch_ms_frame", "device_ms_frame",
-              "launches_per_frame", "loop_ms_frame_ba_off",
-              "loop_ms_frame_ba_on", "gap_ms_frame_ba_off",
-              "gap_ms_frame_ba_on"):
-        assert isinstance(out[k], float), k
-    assert out["launches_per_frame"] == 0.0   # the CPU launches no kernel
-    assert out["device_ms_frame"] == out["dispatch_ms_frame"]
-    assert [d["given"] for d in out["drives"]] == [4, 4]
-    # 8 warm, 3 chunks of 4 stepped off the sequence, 2 x (8 warm + 4)
-    assert out["steps"] == 8 + 12 + 24
-    _check_probe(out, tmp_tempdir, work)
-    assert sorted(p.name for p in REPO.iterdir()) == before
-
-
-def test_probe_chunk_on_cpu(tmp_tempdir, tmp_path, monkeypatch):
-    work = tmp_path / "work"
-    work.mkdir()
-    monkeypatch.chdir(work)
-    before = sorted(p.name for p in REPO.iterdir())
-    out = probe_chunk.main(n_frames=4, device="cpu", scene_frames=N_SCENE,
-                           **SMALL)
-    for k in ("submit_ms", "grab_chunk_ms", "stage_wait_ms",
-              "drain_flush_ms", "total_s", "ms_frame", "fps",
-              "run_sequence_ms_frame", "run_sequence_fps"):
-        assert isinstance(out[k], float), k
-    assert out["chunks"] == 1 and len(out["chunk_ms"]) == 1
-    assert [d["what"] for d in out["drives"]] == [
-        "warm frames", "inline chunks", "run_sequence"]
-    assert out["steps"] == 16
-    _check_probe(out, tmp_tempdir, work)
-    assert sorted(p.name for p in REPO.iterdir()) == before
-
-
-# ---- capture_extras
-
-
-class _Proc:
-    def __init__(self, stdout, rc=0):
-        self.returncode, self.stdout = rc, stdout
-        self.stderr = "\n".join(f"log {i}" for i in range(20))
-
-
-def test_capture_extras_with_stubbed_bench(tmp_path, monkeypatch):
-    calls = []
-    outs = iter([
-        _Proc('warming\n{"metric": "kitti_synth_hard_fps", "value": 4.5}\n'),
-        _Proc('{not json\nnoise\n{"metric": "m4", "value": 7.0}\ntail\n'),
-        _Proc('{"metric": "m8", "value": 9.0}\n', rc=3),
-        _Proc("no json line at all\n"),
-    ])
-
-    def run(argv, **kw):
-        calls.append((argv, kw))
-        return next(outs)
-
-    monkeypatch.setattr(capture_extras.subprocess, "run", run)
-    monkeypatch.setenv("VDO_BENCH_NO_PROBE", "0")
-    old = tmp_path / "BENCH_extra_r05.json"
-    old.write_bytes(b'{"pre-port": true}\n')
-    path = capture_extras.main(["--round", "9", "--streams", "4", "8",
-                                "--device", "cpu"], root=tmp_path)
-    assert path == tmp_path / "BENCH_torch_extra_r09.json"
-    assert old.read_bytes() == b'{"pre-port": true}\n'
-    assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "BENCH_extra_r05.json", "BENCH_torch_extra_r09.json"]
-    modes = [["--hard"], ["--streams", "4"], ["--streams", "8"],
-             ["--throughput"]]
-    assert [c[0] for c in calls] == [
-        [sys.executable, "-m", "vdo_slam_tpu_torch.bench", *m, "--device",
-         "cpu"] for m in modes]
-    assert all(kw["env"]["VDO_BENCH_NO_PROBE"] == "0" for _, kw in calls)
-    art = json.loads(path.read_text())
-    assert set(art) == {"captured_utc", "card", "runs"}
-    assert art["card"] == "cpu"
-    assert [r["args"] for r in art["runs"]] == modes
-    assert [r["rc"] for r in art["runs"]] == [0, 0, 3, 0]
-    assert [r["result"] for r in art["runs"]] == [
-        {"metric": "kitti_synth_hard_fps", "value": 4.5},
-        {"metric": "m4", "value": 7.0}, {"metric": "m8", "value": 9.0},
-        None]
-    for r in art["runs"]:
-        assert set(r) == {"args", "rc", "wall_s", "result", "stderr_tail"}
-        assert r["stderr_tail"] == [f"log {i}" for i in range(8, 20)]
-
-
-def test_capture_extras_defaults_and_probe_knob(tmp_path, monkeypatch):
-    """No --streams: S = 4 only; --skip-hard drops --hard; the stage probe
-    is skipped unless the environment sets its knob."""
-    assert capture_extras.modes([4], False) == [
-        ["--hard"], ["--streams", "4"], ["--throughput"]]
-    assert capture_extras.modes([], True) == [["--throughput"]]
-    seen = []
-    monkeypatch.delenv("VDO_BENCH_NO_PROBE", raising=False)
-    monkeypatch.setattr(capture_extras.subprocess, "run", lambda argv, **kw: (
-        seen.append(kw["env"]["VDO_BENCH_NO_PROBE"]) or _Proc("{}")))
-    capture_extras.main(["--round", "9", "--skip-hard", "--device", "cpu"],
-                        root=tmp_path)
-    assert seen == ["1", "1"]
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            capture_extras.main(["--round", "9"], root=tmp_path)
-
-
 # ---- the scene cache
 
 
@@ -298,7 +163,7 @@ if sys.argv[1] == "block":
     sys.modules["jax"] = None
     sys.modules["flax"] = None
 from vdo_slam_tpu_torch import bench
-from vdo_slam_tpu_torch.tools import capture_extras, probe_chunk, probe_loop
+from vdo_slam_tpu_torch.tools import cube_segmentation, pack_sequence
 scene = bench.bench_scene(3, 320, 96)
 assert scene.rgb.shape == (4, 96, 320), scene.rgb.shape
 bad = [m for m in sys.modules if sys.modules[m] is not None and (
@@ -311,7 +176,7 @@ print("NO_JAX_OK")
 
 @pytest.mark.parametrize("block", ["block", "free"])
 def test_tools_and_cache_load_without_jax(tmp_tempdir, block):
-    """In a fresh process, the three tools import and the cached scene
+    """In a fresh process, the port's two tools import and the cached scene
     loads (not made: the log says so) with jax unimportable ("block"), and
     with jax importable but never imported ("free")."""
     import os

@@ -42,7 +42,8 @@
 // 1242x375 frame, at least 5.16 us at 3.35 TB/s; the arithmetic above is
 // ~1 us of the card's fp32 rate on that frame.  In practice the block
 // skeleton (load, compass test, write) takes about twice the byte bound
-// and the arcs about as much again (chip_fast_phases.py).  The design:
+// and the arcs about as much again (timed on an H100 against cut-down
+// copies of this kernel, each missing one phase).  The design:
 //   * one launch for all levels: the grid is 1-D over the 32x32 output
 //     tiles of every level (blockIdx.y over S), and a block finds its level
 //     in the prefix table of FastPyramid, passed by value as a
