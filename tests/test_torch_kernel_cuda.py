@@ -667,6 +667,37 @@ def test_full_solve_on_card_matches_cpu(tracked_map):
     _solve_both(lambda gg, vv: lm_solve_chunked(gg, vv, p, chunk=3), g, v)
 
 
+def test_full_build_on_card_equals_cpu(tracked_map):
+    """build_full_graph_on the card against the same build on the CPU, bit
+    for bit: every Graph and Variables field, dtypes and shapes included,
+    the write-back's indices and the rest of the GraphMeta (caps,
+    motion slots, counts)."""
+    from vdo_slam_tpu_torch.backend.builders import build_full_graph_on
+    from vdo_slam_tpu_torch.backend.factor_graph import fetch
+
+    m, cfg = tracked_map
+    out = {dev: build_full_graph_on(m, cfg, dev) for dev in ("cpu", "cuda")}
+    (gc, vc, mc), (gg, vg, mg) = out["cpu"], out["cuda"]
+    assert gg.obs_w.device.type == "cuda" and vg.points.device.type == "cuda"
+    names = [f.name for f in dataclasses.fields(gc)]
+    for a, b in ((gc, gg), (vc, vg)):
+        fields = names if a is gc else ["poses", "motions", "points"]
+        host = fetch({n: getattr(b, n) for n in fields})
+        for n in fields:
+            x = getattr(a, n)
+            assert x.dtype == getattr(b, n).dtype and x.shape == host[n].shape
+            np.testing.assert_array_equal(host[n], x.numpy(), err_msg=n)
+    for f in dataclasses.fields(mc):
+        x, y = getattr(mc, f.name), getattr(mg, f.name)
+        if isinstance(x, tuple):
+            for u, w in zip(x, y, strict=True):
+                assert u.dtype == w.dtype == np.int64
+                np.testing.assert_array_equal(u, w, err_msg=f.name)
+        else:
+            assert x == y, f.name
+    assert int((gc.ter_w > 0).sum()) > 20 and mc.n_motions >= 2
+
+
 def test_window_solve_on_its_thread_and_stream(tracked_map):
     """A window end queued on a fused tracker is solved on the tracker's
     solve thread, on its own CUDA stream (not the default one), and the

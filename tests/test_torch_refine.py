@@ -21,7 +21,11 @@ second per iteration.
   * the reference imports torch and numpy only;
   * System.refine, run_sequence(refine=False), System.warmup_refine (the
     refine then makes no graph of its own), the spans and counters of a
-    refine, silence with the recorder off, and a cap that overflows.
+    refine, silence with the recorder off, and a cap that overflows;
+  * two refines of one archive with one observation's depth moved
+    between them build graphs that differ in that edge alone (nothing of
+    a build carries over), and the g2o dump of the refine's graph (built
+    as tensors) reads as that of the host build's arrays.
 """
 
 import ast
@@ -29,6 +33,7 @@ import contextlib
 import copy
 import dataclasses
 import io
+import math
 import time
 from pathlib import Path
 
@@ -41,6 +46,7 @@ from tests.test_pipeline_e2e import small_config
 from tests.test_torch_slice import port_config
 from vdo_slam_tpu_torch.backend import full_ba as pfull
 from vdo_slam_tpu_torch.backend.builders import build_full_graph
+from vdo_slam_tpu_torch.eval import results as presults
 from vdo_slam_tpu_torch.io.dataset import SyntheticDataset
 from vdo_slam_tpu_torch.io.synthetic import make_scene
 from vdo_slam_tpu_torch.pipeline import System
@@ -267,11 +273,65 @@ def test_refine_spans_nest_and_counters_are_the_reports(tracked):
     want.update({f"full.{k}_padded": c["padded"]
                  for k, c in rep["caps"].items()})
     want.update({"full.caps_held": True, "full.cg_iters": rep["cg_iters"],
-                 "full.iters_run": rep["iters_run"]})
+                 "full.iters_run": rep["iters_run"],
+                 "full.build_h2d_bytes": rep["build_h2d_bytes"],
+                 "full.chain_rounds": rep["chain_rounds"]})
     assert got == want
+    assert 0 < rep["chain_rounds"] <= math.ceil(math.log2(m0.num_frames))
+    assert rep["build_h2d_bytes"] > sum(
+        x.nbytes for x in m0.dyn_xy + m0.stat_xy)
     assert [(c.value, c.unit) for c in rec.counted("full.chunk")] == [
         (mode, i) for i, mode in enumerate(rep["chunk_modes"])]
     assert all(c.parent == top.id for c in rec.counts)
+
+
+def test_no_build_carries_over_to_the_next_refine(tracked):
+    """Two refines of one archive, one static observation's depth moved
+    between them: the second graph's obs_meas differs in that edge's row
+    and nowhere else, every other field of the graph is the first's, and
+    each refine counts its archive bytes and chaining rounds once."""
+    _, m0, cfg = tracked
+    m = copy.deepcopy(m0)
+    with profiling.recording() as rec:
+        pfull.full_ba_inplace(m, cfg, device="cpu")
+        g1 = m.g2o_dump["graph"]
+        _, _, meta = build_full_graph(m, cfg)
+        frames, feats, _ = meta.stat_obs
+        row = len(frames) // 2
+        f, j = int(frames[row]), int(feats[row])
+        m.stat_depth[f] = m.stat_depth[f].copy()
+        m.stat_depth[f][j] *= 1.5
+        rep = pfull.full_ba_inplace(m, cfg, device="cpu")
+        g2 = m.g2o_dump["graph"]
+    assert g2 is not g1
+    for fld in dataclasses.fields(g1):
+        a, b = getattr(g1, fld.name), getattr(g2, fld.name)
+        if fld.name != "obs_meas":
+            assert torch.equal(a, b), fld.name
+    moved = torch.nonzero((g1.obs_meas != g2.obs_meas).any(1)).view(-1)
+    assert moved.tolist() == [row]
+    for name in ("full.build_h2d_bytes", "full.chain_rounds"):
+        got = [c.value for c in rec.counted(name)]
+        assert len(got) == 2 and got[0] == got[1] > 0, name
+    assert rep["chain_rounds"] <= math.ceil(math.log2(m.num_frames))
+
+
+def test_g2o_dump_of_the_device_graph_is_the_host_arrays(tracked, tmp_path):
+    """save_results writes the same dynamic_slam_graph_after_opt.g2o from
+    the refine's graph (tensors, int64 indices) as from the host build's
+    arrays of the same archive (int32 indices)."""
+    _, m0, cfg = tracked
+    m = copy.deepcopy(m0)
+    host, _, _ = build_full_graph(m, cfg)
+    pfull.full_ba_inplace(m, cfg, device="cpu")
+    assert torch.is_tensor(m.g2o_dump["graph"].obs_w)
+    presults.save_results(m, tmp_path / "device")
+    m.g2o_dump = dict(m.g2o_dump, graph=host)
+    presults.save_results(m, tmp_path / "host")
+    name = "dynamic_slam_graph_after_opt.g2o"
+    text = (tmp_path / "device" / name).read_text()
+    assert text == (tmp_path / "host" / name).read_text()
+    assert text.count("EDGE_SE3_TRACKXYZ") > 1000
 
 
 def test_refine_off_reads_no_clock(tracked, monkeypatch):

@@ -151,6 +151,16 @@ def graph_from_numpy(g, device="cuda") -> Graph:
                            device))
 
 
+def graph_on_host(g: Graph) -> Graph:
+    """A graph of tensors (full_ba_inplace's, on its device) as numpy
+    arrays, through ONE device-to-host copy (`fetch`: int64 indices,
+    float32 values); a graph of numpy arrays as it is."""
+    if not torch.is_tensor(g.obs_w):
+        return g
+    names = [f.name for f in dataclasses.fields(Graph)]
+    return Graph(**fetch({n: getattr(g, n) for n in names}))
+
+
 def variables_from_numpy(v, device="cuda") -> Variables:
     """Variables of numpy arrays (either package's) as tensors on `device`."""
     t = _upload({n: np.asarray(getattr(v, n))

@@ -1,5 +1,7 @@
 """Copy of vdo_slam_tpu/eval/results.py (metric_report, timing_summary,
-save_results), unchanged apart from this line.
+save_results), unchanged apart from this line and the g2o dump, whose
+graph save_results copies to the host (the refine builds it on its
+device).
 
 Result file writers + end-of-run metric reports.
 
@@ -107,10 +109,11 @@ def save_results(m: MapState, out_dir: str | Path) -> None:
     # --- optimized full-batch graph (dynamic_slam_graph_after_opt.g2o,
     # Optimizer.cc:1935-1936); present once full_ba_inplace has run
     if m.g2o_dump is not None:
+        from ..backend.factor_graph import graph_on_host
         from ..backend.g2o_io import save_g2o
 
         d = m.g2o_dump
-        save_g2o(d["graph"], d["v"],
+        save_g2o(graph_on_host(d["graph"]), d["v"],
                  out / "dynamic_slam_graph_after_opt.g2o",
                  n_poses=d["n_poses"], n_motions=d["n_motions"],
                  n_points=d["n_points"])
