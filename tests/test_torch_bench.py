@@ -43,6 +43,7 @@ import torch
 import bench as jbench
 from tests.test_torch_slice import R_TOL_DEG, T_TOL_M, pose_gap
 from vdo_slam_tpu_torch import bench
+from vdo_slam_tpu_torch import config as pconfig
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(width=320, height=96)
@@ -166,7 +167,7 @@ def test_config_equals_bench_py(knob, clean_env):
     for port, multistream in ((bench.bench_config, False),
                               (bench.multistream_config, True)):
         want = dataclasses.asdict(jax_config(1242, 375, multistream))
-        got = dataclasses.asdict(port(1242, 375))
+        got = pconfig.jax_fields(port(1242, 375))
         assert got.keys() == want.keys()
         for section in want:
             assert got[section] == want[section], (knob, section)
@@ -183,7 +184,7 @@ def test_chunk_knob_and_warmup_frames(clean_env):
     try:
         importlib.reload(jbench)
         assert bench.warmup_frames() == jbench.WARMUP_FRAMES == 6
-        assert (dataclasses.asdict(bench.bench_config())
+        assert (pconfig.jax_fields(bench.bench_config())
                 == dataclasses.asdict(jax_config(1242, 375)))
         assert bench.bench_config().tracking.fused_chunk == 6
     finally:

@@ -52,10 +52,16 @@ def test_datasets_identical(cls):
 
 
 def test_config_dataclasses_agree():
+    """Field by field, the port's own fields (config.PORT_ONLY) aside,
+    which must hold the value that does what the JAX package does."""
     pc, jc = pconfig.VDOConfig(), jconfig.VDOConfig()
-    assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
-    assert (dataclasses.asdict(pconfig.tpu_fast(pc))
+    assert pconfig.jax_fields(pc) == dataclasses.asdict(jc)
+    assert (pconfig.jax_fields(pconfig.tpu_fast(pc))
             == dataclasses.asdict(jconfig.tpu_fast(jc)))
+    odd = pc.replace(tracking=dataclasses.replace(pc.tracking,
+                                                  wire_depth_steps=64))
+    with pytest.raises(ValueError, match="wire_depth_steps"):
+        pconfig.jax_fields(odd)
     assert (pconfig.KITTI, pconfig.OMD, pconfig.VIRTUAL_KITTI) == (
         jconfig.KITTI, jconfig.OMD, jconfig.VIRTUAL_KITTI)
 
@@ -66,7 +72,7 @@ def test_load_settings_agrees(tmp_path):
         "%YAML:1.0\n\nCamera.fx: 500.0\nCamera.fy: 501.0\nCamera.cx: 320.0\n"
         "Camera.cy: 240.0\nCamera.bf: 40.0\nChooseData: 2\nWINDOW_SIZE: 10\n"
         "OVERLAP_SIZE: 2\nMaxTrackPointBG: 600\nORBextractor.nFeatures: 1000\n")
-    assert (dataclasses.asdict(pconfig.load_settings(y))
+    assert (pconfig.jax_fields(pconfig.load_settings(y))
             == dataclasses.asdict(jconfig.load_settings(y)))
 
 

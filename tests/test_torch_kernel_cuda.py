@@ -1069,7 +1069,8 @@ def test_stage_probe_spans_are_device_times():
     times = tr.calibrate_stage_times(ds[8], rounds=2, n_iters=4)
     launches = KERNEL.launches - n0
     rep = tr.probe_report
-    assert len(rep["graphs"]) == len(PROBE_SPANS) + 1
+    # a graph per span, the frame program and the frontend region
+    assert len(rep["graphs"]) == len(PROBE_SPANS) + 2
     want = sum(g["kernel_launches_warm"].get("FastScoreKernel", 0)
                + g["kernel_launches_per_replay"].get("FastScoreKernel", 0)
                * g["replays"] for g in rep["graphs"])
@@ -1087,6 +1088,9 @@ def test_stage_probe_spans_are_device_times():
         dev_ms = _replay_device_ms(call, 4)
         assert abs(times[name] - dev_ms) <= max(0.25 * dev_ms, 0.2), (
             name, times[name], dev_ms)
+    dev_ms = _replay_device_ms(progs.front, 4)      # after the chain
+    assert abs(times["frontend"] - dev_ms) <= max(0.25 * dev_ms, 0.2), (
+        times["frontend"], dev_ms)
     progs.reset_frame()
     dev_ms = _replay_device_ms(progs.frame, 4)
     progs.close()

@@ -131,6 +131,54 @@ def test_config_mismatch_rejected(datasets, tmp_path, bad):
     assert str(je.value) == str(pe.value)
 
 
+def test_omd_wire_steps_round_trip_through_a_directory(tmp_path):
+    """The offline packer at a configuration's wire_depth_steps (a port-
+    only field; configs/omd.json's 64, for disparities over the 256 px
+    that the JAX package's 1/256 px plane can hold): the directory holds
+    the bytes the live wire packs for that configuration, check_config
+    takes it and refuses it under the default 256 steps, and the depth
+    comes back as the packed steps exactly (atol = 0)."""
+    from vdo_slam_tpu_torch.io.packing import (pack_frame, unpack_frame,
+                                               wire_kwargs)
+
+    factor, steps = 1000.0, 64            # omd.yaml's DepthMapFactor
+    pds = SyntheticDataset(make_scene(num_frames=3, width=96, height=64,
+                                      num_objects=1, seed=1),
+                           depth_map_factor=factor, bf=3000.0)
+    assert max(pds[i].depth_raw.max() for i in range(3)) / factor > 256
+    _, cfg = tiny_pair(**{**WIRE, "wire_depth_exc_cap": 4096})
+    tr = dataclasses.replace(cfg.tracking, depth_map_factor=factor,
+                             wire_depth_steps=steps)
+    cfg = cfg.replace(tracking=tr)
+    kw = wire_kwargs(tr)
+    out = ppd.pack_dataset(pds, tmp_path / "p", depth_map_factor=factor,
+                           flow_down=2, flow_delta=True, entropy=True,
+                           seg_cap=tr.wire_seg_cap,
+                           depth_exc_cap=tr.wire_depth_exc_cap,
+                           depth_steps=steps)
+    packed = ppd.PackedDataset(out)
+    packed.check_config(cfg)
+    with pytest.raises(ValueError, match="depth_scale"):
+        packed.check_config(cfg.replace(tracking=dataclasses.replace(
+            tr, wire_depth_steps=256)))
+    mem = ppd.InMemoryPackedDataset(
+        pds, factor, flow_down=2, flow_delta=True, entropy=True,
+        seg_cap=tr.wire_seg_cap, depth_exc_cap=tr.wire_depth_exc_cap,
+        depth_steps=steps)
+    H, W = packed.meta["H"], packed.meta["W"]
+    for i in range(len(pds)):
+        fd = pds[i]
+        live = pack_frame(fd.rgb, fd.depth_raw, fd.flow, fd.mask, **kw)
+        np.testing.assert_array_equal(np.asarray(packed[i].packed), live)
+        np.testing.assert_array_equal(mem[i].packed, live)
+        _, depth, _, _ = unpack_frame(torch.from_numpy(live.copy()),
+                                      hw=(H, W), **kw)
+        want = np.round(fd.depth_raw.astype(np.float64) * steps / factor)
+        assert want.max() < 65535            # no step saturates the u16
+        np.testing.assert_array_equal(
+            depth.numpy().astype(np.float64) * steps / factor, want)
+
+
 def test_system_runs_a_packed_directory(datasets, tmp_path):
     """The wire is the dataset: a run over the directory archives what a
     run over the frames archives (the tracker packs those itself)."""

@@ -357,6 +357,14 @@ def test_a_recorder_fault_still_hands_the_solve_slot_over(monkeypatch):
     tr._queue_ba(6)
     tr._queue_ba(10)
     _bounded(tr._join_ba, timeout=60)
+    # the join returns once the last solve has handed its slot over; its
+    # fault reaches the excepthook after that, on the way out of its
+    # thread, so the threads are joined before the faults are counted (a
+    # thread no longer alive has already reported)
+    for t in threading.enumerate():
+        if t.name in ("window-ba-6", "window-ba-10"):
+            t.join(timeout=60)
+            assert not t.is_alive()
     assert len(tr.map.lba_times) == 2 and tr.ba_failures == 0
     assert [str(e) for e in faults] == ["recorder fault"] * 2
     assert [s.unit for s in rec.named("window.queued")] == [6, 10]

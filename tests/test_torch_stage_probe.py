@@ -88,6 +88,9 @@ def test_probe_returns_every_span(probed):
     assert times.pop("_rtt_ms") >= 0.0
     frame_ms = times.pop("_frame_ms")
     assert frame_ms > 0.0
+    # the frontend region is a part of mask_update, not a span of its own
+    front = times.pop("frontend")
+    assert np.isfinite(front) and front >= 0.0
     assert set(times) == set(PROBE_SPANS)
     assert all(np.isfinite(v) and v >= 0.0 for v in times.values()), times
     total = sum(times.values())
@@ -141,8 +144,9 @@ def test_probe_defaults_to_the_card(probed):
 
 
 def test_times_keep_the_jax_packages_keys(probed):
+    # and the port's own frontend region (prepare alone)
     assert set(probed["times"]) == (set(jax_multistream.PROBE_SPANS)
-                                    | {"_frame_ms", "_rtt_ms"})
+                                    | {"_frame_ms", "_rtt_ms", "frontend"})
     report = probed["sysm"].tracker.probe_report
     assert report["seconds"] > 0
     # no capture on the CPU: the programs ran eagerly
@@ -184,3 +188,18 @@ def test_frame_program_carries_its_state_not_the_trackers(probed):
         assert torch.equal(a, b)
     progs.reset_frame()
     assert torch.equal(progs.frame(), vecs[0])
+
+
+def test_frontend_region_is_the_steps_prepare(probed):
+    """The probe's frontend region, run after the chain over its decoded
+    inputs and propagated mask, gives what mask_update's prepare gave in
+    the chain, tensor for tensor (no draw moves between them)."""
+    from torch.utils._pytree import tree_flatten
+
+    progs, _, _ = _programs(probed)
+    progs.chain()
+    want, spec = tree_flatten(progs.ctx["prep"])
+    got, got_spec = tree_flatten(progs.front())
+    assert got_spec == spec and len(got) > 0
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)

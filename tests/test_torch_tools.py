@@ -100,6 +100,26 @@ def test_pack_cli_entropy_equals_jax_pack_dataset(seq_dir, tmp_path):
     assert PackedDataset(tmp_path / "port").meta["entropy"] is True
 
 
+def test_pack_cli_depth_steps_and_cap_reach_pack_dataset(seq_dir, tmp_path):
+    """--depth-steps and --depth-exc-cap (a configuration's
+    wire_depth_steps and wire_depth_exc_cap, configs/omd.json's 64 and
+    32768) pack what the port's pack_dataset packs with them, and the
+    directory records the scale that check_config holds to the steps."""
+    from vdo_slam_tpu_torch.io.dataset import SequenceDataset
+    from vdo_slam_tpu_torch.io.packed_dataset import pack_dataset
+
+    assert _quiet(pack_sequence.main,
+                  [str(seq_dir), str(tmp_path / "cli"), "--flow-delta",
+                   "--entropy", "--depth-steps", "64", "--depth-exc-cap",
+                   "32768"]) == 0
+    pack_dataset(SequenceDataset(seq_dir), tmp_path / "lib",
+                 depth_map_factor=256.0, flow_half=True, flow_delta=True,
+                 entropy=True, depth_exc_cap=32768, depth_steps=64)
+    _same_tree(tmp_path / "cli", tmp_path / "lib")
+    meta = PackedDataset(tmp_path / "cli").meta
+    assert meta["depth_scale"] == 0.25 and meta["depth_exc_cap"] == 32768
+
+
 # ---- cube segmentation (tests/test_tools_and_configs.py:51-101)
 
 

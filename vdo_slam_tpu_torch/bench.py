@@ -187,7 +187,8 @@ def packed_dataset(scene, cfg):
         depth_map_factor=DEPTH_MAP_FACTOR, flow_down=tr.flow_down,
         flow_delta=tr.flow_delta, depth_down=tr.depth_down,
         depth_resid=tr.depth_resid, entropy=tr.entropy,
-        seg_cap=tr.wire_seg_cap, depth_exc_cap=tr.wire_depth_exc_cap)
+        seg_cap=tr.wire_seg_cap, depth_exc_cap=tr.wire_depth_exc_cap,
+        depth_steps=tr.wire_depth_steps)
 
 
 def stream_offsets(n_total: int, n_streams: int,

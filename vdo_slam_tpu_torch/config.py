@@ -107,6 +107,13 @@ class TrackingConfig:
     wire_entropy: bool = False
     wire_seg_cap: int = 8192
     wire_depth_exc_cap: int = 8192
+    # The depth plane's u16 steps per unit of raw / depth_map_factor: a
+    # metre of RGB-D depth, a pixel of stereo disparity (KITTI, OMD).  256
+    # is the JAX package's wire, up to 255.996 px of disparity (1.514 m at
+    # bf 387.5744); 64 carries up to 1023.98 px (0.379 m), a hand-held
+    # camera's range.  A port-only field: every other value keeps the
+    # JAX package's bytes.
+    wire_depth_steps: int = 256
 
     def __post_init__(self):
         # the JAX package's validation: fail at config time
@@ -122,6 +129,9 @@ class TrackingConfig:
                              "wire (wire_flow_half or wire_flow_down>1)")
         if self.wire_depth_resid and self.wire_depth_down <= 1:
             raise ValueError("wire_depth_resid requires wire_depth_down=2")
+        if self.wire_depth_steps < 1:
+            raise ValueError(f"wire_depth_steps must be >= 1 — got "
+                             f"{self.wire_depth_steps}")
         if self.wire_depth_resid < 0:
             raise ValueError(f"wire_depth_resid must be >= 0 — got "
                              f"{self.wire_depth_resid}")
@@ -262,6 +272,26 @@ class VDOConfig:
 
     def replace(self, **kwargs: Any) -> "VDOConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+# The port's fields that the JAX package's dataclasses lack, each with the
+# value at which the port does what the JAX package does.
+PORT_ONLY = {"tracking": {"wire_depth_steps": 256}}
+
+
+def jax_fields(cfg: VDOConfig) -> dict:
+    """dataclasses.asdict(cfg) without the port-only fields: the JAX
+    package's VDOConfig of the same configuration, as a dict.  ValueError
+    where a port-only field is off its JAX value: no JAX configuration
+    does the same."""
+    d = dataclasses.asdict(cfg)
+    for section, fields in PORT_ONLY.items():
+        for name, jax_value in fields.items():
+            value = d[section].pop(name)
+            if value != jax_value:
+                raise ValueError(f"{section}.{name} = {value!r}: the JAX "
+                                 f"package has only {jax_value!r}")
+    return d
 
 
 def tpu_fast(cfg: VDOConfig) -> VDOConfig:

@@ -69,14 +69,17 @@ def pack_dataset(dataset, out_dir: str | Path, depth_map_factor: float,
                  depth_resid: int = 0,
                  entropy: bool = False,
                  seg_cap: int = 8192,
-                 depth_exc_cap: int = 8192) -> Path:
-    """Pack any FrameData-yielding dataset into a PackedDataset directory."""
+                 depth_exc_cap: int = 8192,
+                 depth_steps: int = 256) -> Path:
+    """Pack any FrameData-yielding dataset into a PackedDataset directory.
+    depth_steps is the run's TrackingConfig.wire_depth_steps; meta.json
+    records it in depth_scale, which check_config compares."""
     from .packing import _norm_flow_down
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     n = len(dataset) if n is None else min(n, len(dataset))
-    dscale = depth_wire_scale(depth_map_factor)
+    dscale = depth_wire_scale(depth_map_factor, depth_steps)
     down = _norm_flow_down(flow_half, flow_down)
 
     fd0 = dataset[0]
@@ -164,7 +167,8 @@ class PackedDataset:
     def check_config(self, cfg) -> None:
         """Assert the pack-time wire parameters match the run config."""
         tr = cfg.tracking
-        want_scale = depth_wire_scale(tr.depth_map_factor)
+        want_scale = depth_wire_scale(tr.depth_map_factor,
+                                      tr.wire_depth_steps)
         if abs(want_scale - self.meta["depth_scale"]) > 1e-9:
             raise ValueError(
                 f"packed depth_scale {self.meta['depth_scale']} != config "
@@ -225,9 +229,10 @@ class InMemoryPackedDataset:
                  depth_resid: int = 0,
                  entropy: bool = False,
                  seg_cap: int = 8192,
-                 depth_exc_cap: int = 8192):
+                 depth_exc_cap: int = 8192,
+                 depth_steps: int = 256):
         n = len(dataset) if n is None else min(n, len(dataset))
-        dscale = depth_wire_scale(depth_map_factor)
+        dscale = depth_wire_scale(depth_map_factor, depth_steps)
         self._items = []
         for i in range(n):
             fd = dataset[i]

@@ -3,8 +3,9 @@
 A frame travels to the device as ONE int16 buffer and is decoded there:
 
   gray u8 | seg u8 << 8      gray quantized to 1/255, labels < 256
-  depth u16                  round(raw * depth_scale): 1/256 m whatever the
-                             dataset's depth_map_factor (depth_wire_scale)
+  depth u16                  round(raw * depth_scale): 1/256 m (or px of
+                             disparity) whatever the dataset's
+                             depth_map_factor (depth_wire_scale)
   flow_u, flow_v fp16 bits   full float range, relative precision
 
 in one of three layouts: the (4, H, W) wire; the flat wire of
@@ -32,11 +33,13 @@ import torch
 Tensor = torch.Tensor
 
 
-def depth_wire_scale(depth_map_factor: float) -> float:
-    """Raw-sample -> u16 wire scale.  Chosen so the metric quantization is
-    ALWAYS 1/256 m regardless of the dataset's depth_map_factor (a raw u16
-    KITTI depth PNG with factor 256 round-trips bit-exactly: scale = 1)."""
-    return 256.0 / float(depth_map_factor)
+def depth_wire_scale(depth_map_factor: float, steps: int = 256) -> float:
+    """Raw-sample -> u16 wire scale: `steps` per unit of raw /
+    depth_map_factor whatever the factor, 1/256 m or 1/256 px of disparity
+    at the default (a raw u16 KITTI disparity PNG with factor 256
+    round-trips bit-exactly: scale = 1).  Fewer steps carry nearer
+    surfaces of a stereo camera (TrackingConfig.wire_depth_steps)."""
+    return float(steps) / float(depth_map_factor)
 
 
 def _row_delta_u16(a: np.ndarray) -> np.ndarray:
@@ -83,7 +86,8 @@ def wire_kwargs(tr) -> dict:
     derived from a TrackingConfig — the single place call sites pick up
     every wire knob (flow down/delta, depth down/resid, entropy caps).
     unpack_frame callers add hw=(H, W)."""
-    return dict(depth_scale=depth_wire_scale(tr.depth_map_factor),
+    return dict(depth_scale=depth_wire_scale(tr.depth_map_factor,
+                                             tr.wire_depth_steps),
                 flow_down=tr.flow_down, flow_delta=tr.flow_delta,
                 depth_down=tr.depth_down, depth_resid=tr.depth_resid,
                 entropy=tr.entropy, seg_cap=tr.wire_seg_cap,
@@ -271,6 +275,29 @@ def pack_frame(gray: np.ndarray, depth_raw: np.ndarray, flow: np.ndarray,
         return np.concatenate(parts)
     f = np.ascontiguousarray(flow.astype(np.float16)).view(np.int16)
     return np.stack([ch0, ch1, enc(f[..., 0]), enc(f[..., 1])])
+
+
+def _entropy_offsets(hw: tuple[int, int], flow_down: int) -> tuple[int, int]:
+    """(nh, o) of the entropy wire at hw = (H, W): gray and the depth
+    deltas take nh u16 words each (u8 pairs), the two flow planes at
+    1/flow_down follow, and the depth exception block (4 planes of
+    depth_exc_cap) starts at o, the seg exception block after it."""
+    H, W = hw
+    d = flow_down
+    nh = (H * W + 1) // 2
+    return nh, 2 * nh + 2 * ((H + d - 1) // d) * ((W + d - 1) // d)
+
+
+def depth_exceptions(buf: np.ndarray, hw: tuple[int, int], flow_down: int,
+                     depth_exc_cap: int) -> int:
+    """The depth exceptions one entropy-wire buffer carries, the number
+    that `depth_exc_cap` bounds: its exception slots that are not padding
+    (index 0, delta 0).  A real exception has a delta beyond int8, so none
+    reads as padding."""
+    _, o = _entropy_offsets(hw, flow_down)
+    block = np.asarray(buf).reshape(-1)[o:o + 4 * depth_exc_cap]
+    planes = block.view(np.uint16).reshape(4, depth_exc_cap)
+    return int(np.count_nonzero(planes.any(axis=0)))
 
 
 def _upsample2x_seg_np(f, seg, valid=None, extrap=False):
@@ -575,7 +602,7 @@ def unpack_frame(buf: Tensor, depth_scale: float = 1.0,
                             dec(planes[..., 1, :, :])], dim=-1)
 
     if entropy:
-        nh = (n + 1) // 2
+        nh, o = _entropy_offsets(hw, d)
 
         def unpair(plane):                       # (..., nh) u16 -> (..., n) u8
             return torch.stack([plane & 0xFF, plane >> 8],
@@ -592,7 +619,6 @@ def unpack_frame(buf: Tensor, depth_scale: float = 1.0,
         gray = unpair(u[..., :nh]).to(torch.float32) * (1.0 / 255.0)
         b = unpair(u[..., nh:2 * nh])
         deltas = ((b ^ 0x80) - 0x80).to(torch.int64)  # sign-extended int8
-        o = 2 * nh + 2 * Hd * Wd
         dep_idx, dep_val = exc(u[..., o:o + 4 * depth_exc_cap])
         o2 = o + 4 * depth_exc_cap
         seg_idx, seg_val = exc(u[..., o2:o2 + 4 * seg_cap])

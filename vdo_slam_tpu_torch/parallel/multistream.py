@@ -342,6 +342,10 @@ STAGE_SPANS = ("mask_update", "camera_est", "obj_track", "obj_est",
 # decode before them and output flattening after them, so that the spans
 # account for the whole packed step
 PROBE_SPANS = ("wire_unpack",) + STAGE_SPANS + ("output_pack",)
+# a region the probe also times, inside mask_update and outside the chain
+# of spans: `prepare` alone (the depth transform, the keypoints, the
+# candidate banks)
+FRONTEND_REGION = "frontend"
 
 
 class _Clock:
@@ -398,17 +402,20 @@ class ProbePrograms:
         span k+1 reading span k's outputs (`chain` runs them);
       * `frame`: one packed step plus pack_outputs, the production frame
         program, its state carried in `frame_state`, which each call
-        steps (`reset_frame` copies the probe's state back in).
+        steps (`reset_frame` copies the probe's state back in);
+      * `front`: the step's `prepare` alone (FRONTEND_REGION), over the
+        chain's decoded inputs and propagated mask.
 
-    `build` runs the frame program and the chain eagerly (the warm-up),
-    then captures them in the same order: span k+1 is captured over span
-    k's captured outputs, the static buffers span k's replays write.  On a
-    card every graph lies in one shared memory pool, the spans' captures
-    reusing what the frame program's frees; that is safe because no two
-    replay at once and the chain is always replayed from its first span
-    on, in capture order, so every span reads outputs replayed after any
-    replay that may have overwritten them.  On the CPU every call runs
-    eagerly on the same buffers."""
+    `build` runs the frame program, the chain and `front` eagerly (the
+    warm-up), then captures them in the same order: span k+1 is captured
+    over span k's captured outputs, the static buffers span k's replays
+    write, and `front` over the chain's.  On a card every graph lies in
+    one shared memory pool, the spans' captures reusing what the frame
+    program's frees; that is safe because no two replay at once and the
+    chain is always replayed from its first span on, in capture order, so
+    every span reads outputs replayed after any replay that may have
+    overwritten them; `front` is replayed only right after the chain.  On
+    the CPU every call runs eagerly on the same buffers."""
 
     def __init__(self, probe: "ScanProbe", state: StreamState,
                  packed_inputs: dict, draws: UniformDraws):
@@ -432,9 +439,18 @@ class ProbePrograms:
                       for name, span in probe.spans]
         self.frame = GraphedCall(self._frame, dev, "probe frame program",
                                  pool=self.pool)
+        self._prepare = probe.prepare
+        self.front = GraphedCall(self._front, dev,
+                                 f"probe region {FRONTEND_REGION}",
+                                 pool=self.pool)
 
     def _span(self, span):
         return span(self.ctx)
+
+    def _front(self):
+        inputs = self.ctx["inputs"]
+        return self._prepare(inputs["rgb"], inputs["depth_raw"],
+                             inputs["flow"], self.ctx["seg"], self._draws)
 
     def _frame(self):
         state, metrics = self._step(self.frame_state.tree, self.inputs.tree,
@@ -462,9 +478,10 @@ class ProbePrograms:
             self.reset_frame()
             self.frame()
             self.chain()
+            self.front()
 
     def calls(self) -> list[GraphedCall]:
-        return self.spans + [self.frame]
+        return self.spans + [self.frame, self.front]
 
     def close(self) -> None:
         """Drop the graphs and their outputs, and with them the pool, now
@@ -489,6 +506,7 @@ class ScanProbe:
                 "device='cpu' to run on the CPU")
         _, _, track_spans = _make_bodies(cfg, self.device)
         unpack = stages.make_unpack(cfg)
+        self.prepare = stages.make_prepare(cfg, self.device)
         self._step = make_frame_step(cfg, self.device, packed=True)
         self.spans = (
             (("wire_unpack",
@@ -520,23 +538,26 @@ class ScanProbe:
 
     def __call__(self, state: StreamState, packed_inputs: dict,
                  draws: UniformDraws, rounds: int = 2):
-        """(times, rtt_ms): times maps each of PROBE_SPANS, and
-        "_frame_ms", to ms per frame; rtt_ms is the baseline, an empty
-        timed region.  A span is the least of `rounds` regions of n_iters
-        replays of its program, less the baseline, over n_iters;
-        "_frame_ms" likewise from the frame program, its state carried
-        from the probe's state in each region.  One untimed pass of every
-        region comes first; the chain's regions always run all spans in
-        order.  `self.report` then holds the wall seconds, each graph's
-        record with its replays and the shared pool's bytes; the graphs
-        themselves are dropped."""
+        """(times, rtt_ms): times maps each of PROBE_SPANS,
+        FRONTEND_REGION and "_frame_ms" to ms per frame; rtt_ms is the
+        baseline, an empty timed region.  A span is the least of `rounds`
+        regions of n_iters replays of its program, less the baseline, over
+        n_iters; FRONTEND_REGION likewise, each of its regions right after
+        the chain's; "_frame_ms" likewise from the frame program, its
+        state carried from the probe's state in each region.  One untimed
+        pass of every region comes first; the chain's regions always run
+        all spans in order.  `self.report` then holds the wall seconds,
+        each graph's record with its replays and the shared pool's bytes;
+        the graphs themselves are dropped."""
         t0 = time.perf_counter()
         rounds, n = max(int(rounds), 1), self.n_iters
         clock = _Clock(self.device)
         progs = self.programs(state, packed_inputs, draws)
 
         def spans():
-            return [clock.region(call, n) for call in progs.spans]
+            # the frontend region reads the chain's outputs: after it
+            return ([clock.region(call, n) for call in progs.spans]
+                    + [clock.region(progs.front, n)])
 
         def frame():
             progs.reset_frame()
@@ -554,7 +575,7 @@ class ScanProbe:
                       for c in progs.calls() if c.record is not None]
             progs.close()
         times = {name: (min(r[k] for r in span_ms) - rtt) / n
-                 for k, name in enumerate(PROBE_SPANS)}
+                 for k, name in enumerate(PROBE_SPANS + (FRONTEND_REGION,))}
         times["_frame_ms"] = max(frame_ms - rtt, 0.0) / n
         self.report = {
             "seconds": time.perf_counter() - t0, "graphs": graphs,
@@ -590,7 +611,11 @@ def make_scan_probe(cfg: VDOConfig, device="cuda",
       map_update   -> static + dynamic renewal, the new state
       output_pack  -> pipeline/fused.py:pack_outputs
     They are the spans that the step's track body composes
-    (`_make_bodies`), so the probe times the code the step runs.
+    (`_make_bodies`), so the probe times the code the step runs.  The
+    region FRONTEND_REGION, `prepare` alone (the depth transform, the
+    keypoints: grid samples, or FAST and its selection; the candidate
+    banks), is timed the same way over the chain's outputs; it is a part
+    of mask_update, not a sixth span.
     "_frame_ms" is the production frame program (the packed step and
     pack_outputs), its state carried from replay to replay, per frame, less
     the baseline: the JAX package's scan of n_iters frame bodies is here

@@ -75,7 +75,7 @@ import torch
 from ..config import OMD, VDOConfig
 from ..devices import on_device
 from ..io.dataset import FrameData
-from ..io.packing import pack_frame, wire_kwargs
+from ..io.packing import depth_exceptions, pack_frame, wire_kwargs
 from ..parallel.multistream import make_frame_step, make_stream_state
 from ..utils import profiling
 from ..utils.cuda_graph import StepGraph
@@ -270,15 +270,21 @@ class FusedTracker:
 
     def wire(self, fd) -> np.ndarray:
         """The frame's int16 wire buffer: a pre-packed frame's own
-        (io/packed_dataset.py), else packed here under the config's wire."""
+        (io/packed_dataset.py), else packed here under the config's wire.
+        While a recorder is on, an entropy wire's depth exceptions are
+        counted (`wire.depth_exc`, the number wire_depth_exc_cap bounds)."""
         pre = getattr(fd, "packed", None)
-        if pre is not None:
-            return np.asarray(pre)
-        return pack_frame(np.asarray(fd.rgb, np.float32),
-                          np.asarray(fd.depth_raw, np.float32),
-                          np.asarray(fd.flow, np.float32),
-                          np.asarray(fd.mask),
-                          **wire_kwargs(self.cfg.tracking))
+        tr = self.cfg.tracking
+        buf = (np.asarray(pre) if pre is not None else pack_frame(
+            np.asarray(fd.rgb, np.float32),
+            np.asarray(fd.depth_raw, np.float32),
+            np.asarray(fd.flow, np.float32), np.asarray(fd.mask),
+            **wire_kwargs(tr)))
+        if profiling.ACTIVE is not None and tr.entropy:
+            profiling.count("wire.depth_exc", depth_exceptions(
+                buf, (self.cfg.camera.height, self.cfg.camera.width),
+                tr.flow_down, tr.wire_depth_exc_cap), self.frame_id)
+        return buf
 
     def _put(self, x, dtype) -> torch.Tensor:
         return upload(x, dtype, self.device)
@@ -340,9 +346,10 @@ class FusedTracker:
         frame, replays each n_iters times per round, and keeps the least of
         `rounds` rounds (parallel/multistream.py:make_scan_probe has the
         method and what the times mean: on a card, device time per frame).
-        Returns {span: ms for span in PROBE_SPANS}, "_frame_ms" (the packed
-        step plus pack_outputs, its state carried) and "_rtt_ms" (the
-        baseline, an empty timed region).  The five STAGE_SPANS, each
+        Returns {span: ms for span in PROBE_SPANS}, "frontend" (`prepare`
+        alone, a part of mask_update), "_frame_ms" (the packed step plus
+        pack_outputs, its state carried) and "_rtt_ms" (the baseline, an
+        empty timed region).  The five STAGE_SPANS, each
         clamped at 0, are archived with every frame, past and future;
         `probe_report` keeps the probe's seconds, its graphs' records and
         replays and its pool's bytes.  The probe changes nothing the run
@@ -510,6 +517,15 @@ class FusedTracker:
                            sh.max_objects)
         self._archive(fd, host, T_cw_gt, fid)
         hm = host["metrics"]
+        if profiling.ACTIVE is not None:
+            # read from the archived outputs: no wait on the device
+            profiling.count("fused.obj_active", int(hm["n_objects"]), fid)
+            if self.cfg.frontend.use_sample_feature:
+                # grid samples taken into the static bank this frame: its
+                # valid features with no track behind them
+                s_valid, s_assoc = host["stat"][3], host["stat"][4]
+                profiling.count("fused.sample_kp",
+                                int(np.sum(s_valid & (s_assoc < 0))), fid)
         rep = {
             "frame_id": fid,
             "T_cw": host["T_cw"],

@@ -3,14 +3,18 @@ a jax-free port of tools/pack_sequence.py.
 
     python -m vdo_slam_tpu_torch.tools.pack_sequence <seq_dir> <out_dir> \
         [--depth-map-factor 256] [--full-res-flow] [--flow-delta] \
-        [--depth-down 2 --depth-resid N] [--entropy] [--frames N]
+        [--depth-down 2 --depth-resid N] [--entropy] \
+        [--depth-exc-cap N] [--depth-steps N] [--frames N]
 
 Converts a sequence directory (example/vdo_slam.cc:150-450 layout) into the
 device wire format (io/packing.py), so that the tracking loop's host work
 per frame is a memmap read and one upload (io/packed_dataset.py).  The
 output directory is byte-equal to the original tool's for the same flags.
 Beside them, --entropy packs the lossless entropy wire (tpu_fast's
-wire_entropy), which the original's flags cannot reach.
+wire_entropy), which the original's flags cannot reach, and
+--depth-exc-cap / --depth-steps match a configuration that changes
+wire_depth_exc_cap or the port-only wire_depth_steps (configs/omd.json:
+32768 and 64).
 """
 
 from __future__ import annotations
@@ -45,6 +49,12 @@ def main(argv=None) -> int:
     ap.add_argument("--entropy", action="store_true",
                     help="the lossless entropy wire (matches tpu_fast's "
                          "wire_entropy; needs the half-res flow)")
+    ap.add_argument("--depth-exc-cap", type=int, default=8192,
+                    help="with --entropy: depth exceptions a frame may "
+                         "carry (matches wire_depth_exc_cap)")
+    ap.add_argument("--depth-steps", type=int, default=256,
+                    help="u16 depth steps per unit of raw / depth-map-"
+                         "factor (matches wire_depth_steps)")
     ap.add_argument("--frames", type=int, default=None)
     args = ap.parse_args(argv)
 
@@ -55,7 +65,9 @@ def main(argv=None) -> int:
                        flow_delta=args.flow_delta,
                        depth_down=args.depth_down,
                        depth_resid=args.depth_resid,
-                       entropy=args.entropy)
+                       entropy=args.entropy,
+                       depth_exc_cap=args.depth_exc_cap,
+                       depth_steps=args.depth_steps)
     print(f"packed {args.frames or len(ds)} frames -> {out}")
     return 0
 
