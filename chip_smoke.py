@@ -21,7 +21,11 @@ Phases, in order (any failure raises and exits nonzero):
      tests/hv_graphs.py, linearised by the solver): H t + damp t and the
      block-Jacobi apply against their plain versions on the card (within
      1e-5 relative), then each timed by CUDA events and on the device
-     beside its byte bound and the plain version's time.
+     beside its byte bound and the plain version's time; then the obs and
+     ter edges' linearisation and evaluation likewise (linearize,
+     evaluate), and the device time of an LM solve of the refine's budget
+     (3 iterations, 12 CG steps) on that graph ranked by the call sites of
+     factor_graph._lm.
      `python3 chip_smoke.py --edge-hessian` runs this phase alone;
   4. the main path: System(mode="fused", device="cuda").run_sequence over
      the bench scene (make_scene(num_frames=101, 1242x375, 3 objects,
@@ -40,8 +44,9 @@ Phases, in order (any failure raises and exits nonzero):
      ends 20, 36, 52, 68, 84 and 100, none of which raises the cost,
      ba_failures 0, a full BA that lowers it and goes through the edge
      Hessian kernels (edge types x CG steps x LM iterations edge launches,
-     (2 x CG steps + 1) x LM iterations vertex passes, counted from zero
-     for the run), and metrics() and metrics(refined=True) within the gates
+     (2 x CG steps + 2) x LM iterations vertex passes) and the linearise
+     and evaluate kernels (large edge types x (2 x LM iterations + chunks)
+     launches), each counted from zero for the run, and metrics() and metrics(refined=True) within the gates
      against the JAX package's numbers; prints the seconds flush waited for
      solves still running.
      Then, on the final map, one window solve and one full BA under
@@ -1006,9 +1011,184 @@ def edge_hessian_phase(device, card: str, reps: int = 20) -> dict:
                plain_device_ms=plain_dev, pre_device_ms=pre_dev,
                pre_plain_device_ms=pre_plain_dev, bound_ms=bound,
                pre_bound_ms=bound_pre, gap=gap, gap_pre=gap_pre)
-    del g, v, blocks, weights, D, Dinv, t
+    del blocks, weights, D, Dinv, t
+    torch.cuda.empty_cache()
+    out["linearize"] = edge_linearize_times(g, v, card, reps)
+    out["lm_call_sites"] = lm_call_sites(g, v, card)
+    del g, v
     torch.cuda.empty_cache()
     return out
+
+
+def lin_bytes(g) -> dict:
+    """The floor bytes of the obs and ter edges' linearisation and
+    evaluation, per edge type: every weight read once; for each edge whose
+    weight is not 0 its indices, measurement (obs) and gathered point rows
+    read once (44 B an obs edge, 52 B a ter edge with its weight); the
+    linearisation also writes every edge's IRLS weight and each live
+    edge's two written Jacobian blocks (27 floats) once.  The gradient
+    rows and blocks (read-modify-written by atomics, and zeroed first) are
+    counted apart as `rows` (each written once)."""
+    out = {}
+    for edge, per in (("obs", 16 + 12 + 12), ("ter", 24 + 24)):
+        w = getattr(g, edge + "_w")
+        live = int((w != 0).sum())
+        read = 4 * w.shape[0] + live * per
+        out[edge] = {"evaluate": read,
+                     "linearize": read + 4 * w.shape[0] + live * 27 * 4}
+    return out
+
+
+def edge_linearize_times(g, v, card: str, reps: int) -> dict:
+    """Phase 3b, continued: `linearize` and `evaluate` (the obs and ter
+    edges) against their plain versions on the card, then each timed by
+    CUDA events and its kernels on the device, beside their byte floors
+    (lin_bytes) and the plain versions' device time, at the refine's
+    Huber delta (1e-4)."""
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+
+    delta = 1e-4
+    wp, bp, gp, dp = EH.linearize_plain(g, v, delta, True)
+    wk, bk, gk, dk = EH.linearize(g, v, delta, True)
+    ep, ek = EH.evaluate_plain(g, v, delta, True), EH.evaluate(g, v, delta,
+                                                              True)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    gaps = {"weights": max(rel(wk[e], wp[e]) for e in EH.LARGE),
+            "blocks": max(rel(bk[J][getattr(g, e + "_w") != 0],
+                              bp[J][getattr(g, e + "_w") != 0])
+                          for e in EH.LARGE for J, _, _ in EH.INCIDENCE[e]),
+            "gradient": max(rel(a, b) for a, b in zip(gk, gp)),
+            "block_diag": max(rel(a, b) for a, b in zip(dk, dp)),
+            "sums": max(rel(ek[e][k], ep[e][k]) for e in EH.LARGE
+                        for k in ("rho", "chi2"))}
+    counts_equal = all(int(ek[e][k]) == int(ep[e][k]) for e in EH.LARGE
+                       for k in ("n", "n_inlier"))
+    print(f"linearize / evaluate against the plain version on the card: "
+          f"largest gaps {json.dumps({k: f'{x:.3e}' for k, x in gaps.items()})}"
+          f" of each output's largest entry; counts equal: {counts_equal}")
+    if max(gaps.values()) > 1e-5 or not all(
+            int(ek[e]["n"]) == int(ep[e]["n"]) for e in EH.LARGE):
+        raise RuntimeError("the linearisation kernels depart from their "
+                           "plain version")
+    del wp, bp, gp, dp, wk, bk, gk, dk
+    torch.cuda.empty_cache()
+
+    def lin():
+        return EH.linearize(g, v, delta, True)
+
+    def lin_plain():
+        return EH.linearize_plain(g, v, delta, True)
+
+    def ev():
+        return EH.evaluate(g, v, delta, True)
+
+    def ev_plain():
+        return EH.evaluate_plain(g, v, delta, True)
+
+    floor = lin_bytes(g)
+    rows = sum(4 * x.shape[0] * (w + w * w)
+               for x, w in ((v.poses, 6), (v.motions, 6), (v.points, 3)))
+    out = {}
+    for name, fn, plain, kernel in (("linearize", lin, lin_plain,
+                                     "edge_lin_kernel"),
+                                    ("evaluate", ev, ev_plain,
+                                     "edge_eval_kernel")):
+        times = _kernel_times(fn, reps)
+        for k, (n, ms) in sorted(times.items()):
+            print(f"  {name}: {k[:90]}: {n / reps:.0f} a call, {ms:.4f} ms "
+                  f"each on the device")
+        per_type = {}
+        for e, variant in (("obs", "<0"), ("ter", "<1")):
+            per_type[e] = sum(ms * n for k, (n, ms) in times.items()
+                              if kernel in k and variant in k) / reps
+        dev = sum(n * ms for _, (n, ms) in times.items()) / reps
+        plain_dev = sum(n * ms for _, (n, ms) in _kernel_times(
+            plain, 3).items()) / 3
+        ev_ms, plain_ev_ms = _time_ms(fn, reps), _time_ms(plain, 3)
+        byte = sum(floor[e][name] for e in EH.LARGE) + (
+            rows if name == "linearize" else 0)
+        bound = byte / HBM_BYTES_PER_S * 1e3
+        kern = sum(per_type.values())
+        print(f"{name} (obs + ter): {ev_ms:.4f} ms by events, {dev:.4f} ms "
+              f"on the device (kernels: obs {per_type['obs']:.4f}, ter "
+              f"{per_type['ter']:.4f}); byte floor {bound:.4f} ms "
+              f"({byte / 1e9:.3f} GB, {'with' if name == 'linearize' else 'no'}"
+              f" vertex rows), share of the kernels {bound / kern:.3f}; the "
+              f"plain version {plain_ev_ms:.4f} ms by events, "
+              f"{plain_dev:.4f} ms on the device [{card}]")
+        out[name] = {"ms": ev_ms, "device_ms": dev, "kernel_ms": per_type,
+                     "plain_ms": plain_ev_ms, "plain_device_ms": plain_dev,
+                     "floor_bytes": byte, "bound_ms": bound}
+    out["gaps"] = gaps
+    out["counts_equal"] = counts_equal
+    return out
+
+
+def lm_call_sites(g, v, card: str) -> dict:
+    """One LM solve of the refine's budget (3 iterations, 12 CG steps,
+    Huber delta 1e-4) on the graph at the refine's caps, its kernels'
+    device time (torch.profiler) ranked by the call sites of
+    factor_graph._lm: each site's pieces profiled alone on the solve's own
+    inputs and counted as often as a solve calls them (4 evaluations, 3
+    linearisations, 36 products, 39 block-Jacobi applies); "PCG vector
+    ops" is PCG alone less its products and applies, "other" the solve
+    less every site (the damped blocks' sums, the statistics' selection,
+    the shards' sums)."""
+    from vdo_slam_tpu_torch.backend import factor_graph as fg
+
+    p = fg.LMParams(iters=3, cg_iters=12)
+    n_cg = p.cg_iters
+
+    def dev_ms(fn, reps: int = 3) -> float:
+        return sum(n * ms for _, (n, ms) in _kernel_times(fn, reps).items()
+                   ) / reps
+
+    total = dev_ms(lambda: fg.lm_solve(g, v, p), 1)
+    lam = fg._lam(p, v.points)
+    w, b, grad, D = fg._lin_sums(g, v, p)
+
+    def precond():
+        damp = fg._damped_diag(D, lam)
+        return damp, fg._invert_precond(tuple(
+            x + torch.diag_embed(dd)
+            for x, dd in zip(D, (damp.poses, damp.motions, damp.points))))
+
+    damp, D_prec = precond()
+
+    def mv(t):
+        return fg._matvec(g, b, w, t, damp)
+
+    def pre(t):
+        return fg._apply_precond(D_prec, t)
+
+    cost = fg._evaluate(g, v, p)["cost"]
+    step = grad.scale(-1e-3)
+    lin = dev_ms(lambda: fg.linearize(g, v, p.huber_delta, p.robust))
+    prod, apply = dev_ms(lambda: mv(grad)), dev_ms(lambda: pre(grad))
+    sites = {
+        "evaluate (cost + stats)": 4 * dev_ms(lambda: fg._evaluate(g, v, p)),
+        "linearize obs + ter": 3 * lin,
+        "small edge types (jacfwd, sums)": 3 * (
+            dev_ms(lambda: fg._lin_sums(g, v, p)) - lin),
+        "damping + block inverses": 3 * dev_ms(precond),
+        "PCG product H t": 3 * n_cg * prod,
+        "PCG block-Jacobi": 3 * (n_cg + 1) * apply,
+        "PCG vector ops": 3 * (dev_ms(lambda: fg._pcg(
+            mv, pre, grad.scale(-1.0), n_cg)) - n_cg * prod
+            - (n_cg + 1) * apply),
+        "retract + accept": 3 * dev_ms(lambda: fg._accept(
+            fg._retract_vars(v, step), v, cost, cost, lam, p)),
+    }
+    sites["other"] = total - sum(sites.values())
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1])
+    print(f"one LM solve (3 iterations, 12 CG steps) at the caps: "
+          f"{total:.3f} ms of kernels on the device, by call site [{card}]:")
+    for k, ms in ranked:
+        print(f"  {k}: {ms:.3f} ms ({100 * ms / max(total, 1e-9):.1f} %)")
+    return {"device_ms": total, "sites": dict(ranked)}
 
 
 def _timed_run(run, ds_list):
@@ -1246,6 +1426,7 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = EH.KERNEL.launches = EH.VERTEX.launches = 0
+    EH.LIN.launches = 0
     JOIN_WAIT.update(s=0.0, joins=0)
     t0 = time.perf_counter()
     reports = sysm.run_sequence(ds)
@@ -1253,6 +1434,7 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
     wall = time.perf_counter() - t0 - kept["s"]
     launches = KERNEL.launches
     hv_launches, vx_launches = EH.KERNEL.launches, EH.VERTEX.launches
+    lin_launches = EH.LIN.launches
     waited = join_wait(what, card)
     peak = torch.cuda.max_memory_allocated()
     health, full = sysm.tracker.ba_health, sysm.full_ba_report
@@ -1304,21 +1486,33 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
           f"motions [{card}]")
     if not full["cost"] < full["cost0"]:
         raise RuntimeError("the full BA did not lower the cost")
-    # the refine is the only solve of the run that takes PCG's product (the
-    # window solves are "schur"): one edge launch per edge type with edges
-    # per CG step, a vertex pass per product and per preconditioner apply
+    # the refine is the only solve of the run that takes PCG's product and
+    # the linearise and evaluate kernels (the window solves are "schur"):
+    # one edge launch per edge type with edges per CG step; a vertex pass
+    # per product, per preconditioner apply and per linearisation's mirror;
+    # a linearise or evaluate launch per large edge type with edges, per
+    # linearisation (one an LM iteration) and per evaluation (one at each
+    # chunk's start and one at each LM step)
     n_types = sum(1 for x in full["edges"].values() if x)
-    want_hv = n_types * full["cg_iters"] * full["iters_run"]
-    want_vx = (2 * full["cg_iters"] + 1) * full["iters_run"]
+    n_large = sum(1 for e in EH.LARGE if full["edges"][e])
+    iters_run = full["iters_run"]
+    want_hv = n_types * full["cg_iters"] * iters_run
+    want_vx = (2 * full["cg_iters"] + 2) * iters_run
+    want_lin = n_large * (2 * iters_run + len(full["chunk_modes"]))
     print(f"{what}: full BA through the edge Hessian kernels: "
           f"{hv_launches} edge launches ({n_types} edge types x "
-          f"{full['cg_iters']} CG steps x {full['iters_run']} LM iterations "
-          f"= {want_hv}), {vx_launches} vertex passes (want {want_vx}); "
-          f"chunks {full['chunk_modes']}")
-    if (hv_launches, vx_launches) != (want_hv, want_vx) or not want_hv:
-        raise RuntimeError(f"{what}: {hv_launches} edge launches and "
-                           f"{vx_launches} vertex passes in the full BA, "
-                           f"want {want_hv} and {want_vx}")
+          f"{full['cg_iters']} CG steps x {iters_run} LM iterations "
+          f"= {want_hv}), {vx_launches} vertex passes (want {want_vx}), "
+          f"{lin_launches} linearise/evaluate launches (want {want_lin}: "
+          f"{n_large} edge types x (2 x {iters_run} + "
+          f"{len(full['chunk_modes'])} chunks)); chunks "
+          f"{full['chunk_modes']}")
+    if (hv_launches, vx_launches, lin_launches) != (
+            want_hv, want_vx, want_lin) or not (want_hv and want_lin):
+        raise RuntimeError(f"{what}: {hv_launches} edge launches, "
+                           f"{vx_launches} vertex passes and {lin_launches} "
+                           f"linearise/evaluate launches in the full BA, "
+                           f"want {want_hv}, {want_vx} and {want_lin}")
     for r in reports:
         if not np.isfinite(r["T_cw"]).all():
             raise RuntimeError("non-finite pose in a report")
@@ -1328,7 +1522,8 @@ def ba_path(ds, cfg, device, card: str, ref: dict, what: str,
         gate(metrics["initial"], ref["initial"], f" ({what}, before full BA)")
         gate(metrics["refined"], ref["refined"], f" ({what}, refined)")
     out = {"fast_launches": launches, "hv_launches": hv_launches,
-           "vertex_launches": vx_launches, "peak_bytes": peak, "wall_s": wall,
+           "vertex_launches": vx_launches, "lin_launches": lin_launches,
+           "peak_bytes": peak, "wall_s": wall,
            "metrics": metrics, "system": sysm, "join_wait_s": waited,
            "pre_full_map": kept.get("map")}
     if not solvers:
@@ -2112,10 +2307,12 @@ def stage_probe(sysm, ds, device, card: str) -> dict:
           f"({rep['pool_reserved_bytes'] / 2**20:.1f} MiB), "
           f"{launches} FAST launches (the records say {want}); "
           f"{json.dumps(rep['graphs'])} [{card}]")
-    if len(rep["graphs"]) != len(PROBE_SPANS) + 1 or launches != want:
+    # a graph per span, the frame program and the frontend region
+    n_graphs = len(PROBE_SPANS) + 2
+    if len(rep["graphs"]) != n_graphs or launches != want:
         raise RuntimeError(f"stage probe: {len(rep['graphs'])} graphs, "
-                           f"{launches} FAST launches, want "
-                           f"{len(PROBE_SPANS) + 1} and {want}")
+                           f"{launches} FAST launches, want {n_graphs} and "
+                           f"{want}")
     if not (all(math.isfinite(v) for v in spans.values())
             and times["_frame_ms"] > 0):
         raise RuntimeError(f"stage probe: bad times {times}")
@@ -3476,6 +3673,7 @@ def full_ba_graphs(ba: dict, device, card: str) -> dict:
     from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
                                                     full_ba_inplace,
                                                     warmup_full_ba)
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
 
     cfg = bench_ba_config()
     pre = ba["pre_full_map"]
@@ -3500,6 +3698,7 @@ def full_ba_graphs(ba: dict, device, card: str) -> dict:
             lambda: full_ba_inplace(maps[0], cfg, device=device, graphs=g))
         rep = reps[-1]
         n_types = sum(1 for x in rep["edges"].values() if x)
+        n_large = sum(1 for e in EH.LARGE if rep["edges"][e])
         cg = rep["cg_iters"]
         out[name] = {"wall_ms": float(np.median(walls)),
                      "solve_s": float(np.median([r["t_solve_s"]
@@ -3538,15 +3737,18 @@ def full_ba_graphs(ba: dict, device, card: str) -> dict:
         raise RuntimeError(f"17a: {g['iters']} / {e['iters']} LM "
                            f"iterations, {len(recs)} captures of "
                            f"{len(graphs._calls)} graphs")
-    # each captured LM chunk records an edge launch per edge type with
-    # edges per CG step and a vertex pass per product and per
-    # preconditioner apply, for each of its iterations
+    # each captured LM chunk records, for each of its iterations, an edge
+    # launch per edge type with edges per CG step, a vertex pass per
+    # product, per preconditioner apply and per linearisation's mirror, and
+    # a linearise and two evaluate launches per large edge type (one more
+    # evaluation at the chunk's start)
     per_replay = []
     for r in recs:
         iters = int(r["name"].split("iters=")[1].split()[0])
         got = r["kernel_launches_per_replay"]
         want = {"EdgeHessianKernel": n_types * cg * iters,
-                "VertexPassKernel": (2 * cg + 1) * iters}
+                "VertexPassKernel": (2 * cg + 2) * iters,
+                "EdgeLinearizeKernel": n_large * (2 * iters + 1)}
         per_replay.append(got)
         if {k: got.get(k, 0) for k in want} != want:
             raise RuntimeError(f"17a: {r['name']} records {got} launches a "

@@ -24,6 +24,16 @@ edges at index 0, for each edge type alone, all six, and all but one left
 empty, within 1e-5 relative to each output's largest entry (float32 sums
 against float64); the block-Jacobi apply likewise; and its host-side
 checks raise on wrong dtypes and shapes.
+
+The obs and ter edges' linearisation and evaluation (`linearize`,
+`evaluate`, plain on the CPU) give exactly what the solver's own ops give:
+_lin_sums the weights, blocks, gradient and block diagonal of _linearize,
+_gradient and _block_diag, _evaluate the cost and statistics of
+robust_cost and edge_type_stats, bit for bit, on the same random graph with
+padding edges, every live edge robustified, edges on both sides of
+delta^2, and not robust; a solve's statistics are those of the variables
+it returns, through accepted and rejected steps; and the wrapper's checks
+raise on wrong dtypes, shapes and devices.
 """
 
 import dataclasses
@@ -282,8 +292,8 @@ def test_jacobian_blocks(mixed):
     _, _, tg, tv, _, ref = mixed
     bj = ref["blocks"]
     ports = {
-        ("Jo_pose", "Jo_pt"): T._obs_blocks(tg, tv),
-        ("Jt_prev", "Jt_cur", "Jt_mot"): T._ter_blocks(tg, tv),
+        ("Jo_pose", "Jo_pt"): EH.obs_blocks(tg, tv),
+        ("Jt_prev", "Jt_cur", "Jt_mot"): EH.ter_blocks(tg, tv),
         ("Jd_a", "Jd_b"): T._rel_blocks(tg.odo_meas_inv, tv.poses[tg.odo_a],
                                         tv.poses[tg.odo_b]),
         ("Jp",): (T._pri_blocks(tg.pri_meas_inv, tv.poses[tg.pri_idx]),),
@@ -531,3 +541,129 @@ def test_block_jacobi_rejects_a_wrong_block(hv_graph):
         EH.block_jacobi((good[0].double(), good[1], good[2]), t)
     assert all(float(x.abs().max()) == 0.0
                for x in EH.block_jacobi(good, t))
+
+
+# --------------------------------------------------------------------------
+# the obs and ter edges' linearisation and evaluation (plain path)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lin_graph():
+    """hv_graph's graph (zero-weight padding edges included) with its
+    variables."""
+    return hv_graphs.upload(*hv_graphs.make_graph(seed=3), "cpu")
+
+
+# delta 2.0 leaves live obs and ter edges on both sides of delta^2 here
+LIN_PARAMS = [T.LMParams(), T.LMParams(huber_delta=2.0),
+              T.LMParams(robust=False)]
+LIN_IDS = ["all_robust", "both_sides", "not_robust"]
+
+
+@pytest.mark.parametrize("p", LIN_PARAMS, ids=LIN_IDS)
+def test_linearize_sums_equal_the_solver_ops(lin_graph, p):
+    g, v = lin_graph
+    F, M, P = (x.shape[0] for x in (v.poses, v.motions, v.points))
+    resid, weights, blocks = T._linearize(g, v, p)
+    grad = T._gradient(g, blocks, weights, resid, F, M, P)
+    diag = T._block_diag(g, blocks, weights, F, M, P)
+    w2, b2, g2, d2 = T._lin_sums(g, v, p)
+    assert set(w2) == set(weights) == set(T.EDGE_TYPES)
+    assert set(b2) == set(blocks)
+    assert all(torch.equal(w2[k], weights[k]) for k in weights)
+    assert all(torch.equal(b2[k], blocks[k]) for k in blocks)
+    assert all(torch.equal(getattr(g2, k), getattr(grad, k))
+               for k in EH.KINDS)
+    assert all(torch.equal(a, b) for a, b in zip(d2, diag, strict=True))
+    wl, bl, _, _ = EH.linearize(g, v, p.huber_delta, p.robust)
+    for edge in EH.LARGE:
+        w = getattr(g, edge + "_w")
+        live = w != 0
+        assert int((~live).sum()) > 0
+        assert torch.equal(wl[edge], weights[edge])
+        assert float(wl[edge][~live].abs().max()) == 0.0
+        cut = int((wl[edge][live] < w[live]).sum())
+        if not p.robust:
+            assert cut == 0
+        elif p.huber_delta == 2.0:
+            assert 0 < cut < int(live.sum())
+        else:
+            assert cut == int(live.sum())
+
+
+@pytest.mark.parametrize("p", LIN_PARAMS, ids=LIN_IDS)
+def test_evaluate_equals_cost_and_stats(lin_graph, p):
+    g, v = lin_graph
+    ev = T._evaluate(g, v, p)
+    assert torch.equal(ev["cost"], T.robust_cost(g, v, p))
+    stats = T.edge_type_stats(g, v, p)
+    assert list(ev["stats"]) == list(stats)
+    for name, st in stats.items():
+        assert all(torch.equal(ev["stats"][name][k], x)
+                   for k, x in st.items())
+    sums = EH.evaluate(g, v, p.huber_delta, p.robust)
+    for edge in EH.LARGE:
+        assert sums[edge]["n"].dtype == torch.int64
+        assert all(torch.equal(sums[edge][k], stats[edge][k])
+                   for k in ("n", "chi2", "n_inlier"))
+
+
+def test_lm_statistics_are_those_of_its_variables(lin_graph, monkeypatch):
+    """_lm evaluates once at v0 and once a step, and carries the accepted
+    variables' statistics: its cost0, cost, stats0 and stats equal
+    robust_cost and edge_type_stats at v0 and at the variables it returns,
+    through rejected steps (steps blown up 10x, so that the damping has to
+    rise before one is accepted) and accepted ones."""
+    g, v0 = lin_graph
+    retract = T._retract_vars
+    monkeypatch.setattr(T, "_retract_vars",
+                        lambda v, t: retract(v, t.scale(10.0)))
+    p = T.LMParams(iters=8, cg_iters=3, huber_delta=2.0)
+    v, info = T.lm_solve(g, v0, p)
+    hist = torch.cat([info["cost0"][None], info["history"]])
+    assert bool((hist[1:] == hist[:-1]).any())      # rejected
+    assert bool((hist[1:] < hist[:-1]).any())       # accepted
+    for vv, cost, st in ((v0, info["cost0"], info["stats0"]),
+                         (v, info["cost"], info["stats"])):
+        assert torch.equal(cost, T.robust_cost(g, vv, p))
+        want = T.edge_type_stats(g, vv, p)
+        assert all(torch.equal(st[n][k], want[n][k])
+                   for n in want for k in want[n])
+
+
+def _bad_lin(g, v, what):
+    """One input of linearize and evaluate spoiled."""
+    if what == "weight_float64":
+        g = dataclasses.replace(g, ter_w=g.ter_w.double())
+    elif what == "index_int32":
+        g = dataclasses.replace(g, obs_point=g.obs_point.int())
+    elif what == "index_length":
+        g = dataclasses.replace(g, ter_mot=g.ter_mot[:-1])
+    elif what == "meas_width":
+        g = dataclasses.replace(g, obs_meas=g.obs_meas[:, :2])
+    elif what == "poses_float64":
+        v = dataclasses.replace(v, poses=v.poses.double())
+    elif what == "points_width":
+        v = dataclasses.replace(v, points=torch.zeros(v.points.shape[0], 4))
+    elif what == "motions_shape":
+        v = dataclasses.replace(v, motions=v.motions[:, :3])
+    elif what == "meta_device":
+        v = T.Variables(*[x.to("meta") for x in (v.poses, v.motions,
+                                                 v.points)])
+    elif what == "edge_on_meta":
+        g = dataclasses.replace(g, ter_cur=g.ter_cur.to("meta"))
+    return g, v
+
+
+@pytest.mark.parametrize("what,err", [
+    ("weight_float64", TypeError), ("index_int32", TypeError),
+    ("index_length", ValueError), ("meas_width", ValueError),
+    ("poses_float64", TypeError), ("points_width", ValueError),
+    ("motions_shape", ValueError), ("meta_device", ValueError),
+    ("edge_on_meta", ValueError)])
+def test_linearize_and_evaluate_reject(lin_graph, what, err):
+    g, v = _bad_lin(*lin_graph, what)
+    with pytest.raises(err):
+        EH.linearize(g, v, 1e-4, True)
+    with pytest.raises(err):
+        EH.evaluate(g, v, 1e-4, True)

@@ -50,7 +50,15 @@ starting cost, as the JAX-vs-port CPU tests hold them.  The edge Hessian
 product H t (and H t + damp * t, Dinv r) is held to its plain version on
 the card within 1e-5 relative to each output's largest entry: both sum in
 float32, the kernels with float atomics in another order (and another from
-run to run), after warp and shared-memory partial sums.
+run to run), after warp and shared-memory partial sums.  The
+linearisation and evaluation kernels of the observation and ternary edges
+are held to their plain versions on the card: the IRLS weights, each
+written Jacobian block and the cost and chi2 sums within 1e-5 relative to
+each output's largest entry, the gradient rows and block-diagonal blocks
+(float atomics, summed over up to ~3,600 edges a pose row) within 1e-5
+likewise, the active-edge counts exact and the inlier counts exact but for
+edges whose chi2 lies within 1e-6 of delta^2 (the residual's rounding
+decides those).
 """
 
 import dataclasses
@@ -1361,5 +1369,113 @@ def test_graphed_refine_counts_its_hv_launches(tracked_map):
         iters = int(r["name"].split("iters=")[1].split()[0])
         assert r["kernel_launches_per_replay"]["EdgeHessianKernel"] == (
             n_types * reps[0]["cg_iters"] * iters)
+        # per LM iteration: the product's start at each CG step, the
+        # block-Jacobi apply at each and once before them, and the
+        # linearisation's mirror pass
         assert r["kernel_launches_per_replay"]["VertexPassKernel"] == (
-            (2 * reps[0]["cg_iters"] + 1) * iters)
+            (2 * reps[0]["cg_iters"] + 2) * iters)
+
+
+LIN_CASES = [("refine_caps", 1e-4, True), ("refine_caps", 2.0, True),
+             ("window", 2.0, True), ("window", 2.0, False),
+             ("above_smem", 2.0, True)]
+
+
+@pytest.mark.parametrize("case,delta,robust", LIN_CASES)
+def test_edge_linearize_kernels_equal_plain(case, delta, robust):
+    """linearize and evaluate on the card against their plain versions on
+    the card: at the refine's caps, a window's graph and one whose pose
+    and motion rows do not fit a block's shared memory; Huber deltas with
+    every live edge robustified (1e-4) and with edges on both sides of
+    delta^2 (2.0); one launch per edge type and one mirror pass a
+    linearisation, one launch per edge type an evaluation."""
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+
+    g, v = _hv_case(case)
+    lin, vertex = EH.LIN.launches, EH.VERTEX.launches
+    wp, bp, gp, dp = EH.linearize_plain(g, v, delta, robust)
+    wk, bk, gk, dk = EH.linearize(g, v, delta, robust)
+    ep = EH.evaluate_plain(g, v, delta, robust)
+    ek = EH.evaluate(g, v, delta, robust)
+    torch.cuda.synchronize()
+    assert EH.LIN.launches - lin == 4 and EH.VERTEX.launches - vertex == 1
+    for edge in EH.LARGE:
+        w = getattr(g, edge + "_w")
+        live = w != 0
+        assert int((~live).sum()) > 0
+        assert torch.equal(wk[edge][~live], torch.zeros_like(w[~live]))
+        assert _rel_gap((wk[edge],), (wp[edge],)) <= 1e-5
+        if robust and delta == 2.0:
+            # both sides of delta^2: weights cut and weights kept
+            assert 0 < int((wp[edge][live] < w[live]).sum()) < int(live.sum())
+        for J, _, _ in EH.INCIDENCE[edge]:
+            if bk[J].stride(0) == 0:
+                assert torch.equal(bk[J], bp[J])      # Jt_prev: I
+            else:
+                assert _rel_gap((bk[J][live],), (bp[J][live],)) <= 1e-5
+        for k in ("rho", "chi2"):
+            assert _rel_gap((ek[edge][k],), (ep[edge][k],)) <= 1e-5
+        assert int(ek[edge]["n"]) == int(ep[edge]["n"]) == int(live.sum())
+        r = (EH.obs_residual if edge == "obs" else EH.ter_residual)(g, v)
+        c = EH.chi2(r, w)
+        near = int(((c - delta * delta).abs() <= 1e-6 * delta * delta)
+                   .sum())
+        assert abs(int(ek[edge]["n_inlier"]) - int(ep[edge]["n_inlier"])
+                   ) <= near
+    assert _rel_gap(gk, gp) <= 1e-5
+    assert _rel_gap(dk, dp) <= 1e-5
+    assert all(torch.equal(x, x.transpose(-1, -2)) for x in dk)
+
+
+def test_linearize_rejects_strides_the_kernels_do_not_take():
+    """On the card the linearisation's inputs must be contiguous."""
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+
+    g, v = _hv_case("window")
+    bad = dataclasses.replace(v, points=v.points.t().contiguous().t())
+    with pytest.raises(ValueError):
+        EH.linearize(g, bad, 1e-4, True)
+    bad = dataclasses.replace(g, obs_pose=torch.stack(
+        [g.obs_pose, g.obs_pose], 1)[:, 0])
+    with pytest.raises(ValueError):
+        EH.evaluate(bad, v, 1e-4, True)
+
+
+def test_graphed_refine_counts_its_lin_launches(tracked_map):
+    """full_ba_inplace from its graphs goes through the linearise and
+    evaluate kernels: full.lin_launches and the kernel's `launches` read 2
+    x (2 x iters_run + chunks) (a linearisation an LM iteration, an
+    evaluation at each chunk's start and at each step), each capture
+    records 2 x (2 x its chunk's iterations + 1), and the eager solve
+    counts the same."""
+    import copy
+
+    from vdo_slam_tpu_torch.backend.full_ba import (FullBAGraphs,
+                                                   full_ba_inplace,
+                                                   warmup_full_ba)
+    from vdo_slam_tpu_torch.ops import edge_hessian_cuda as EH
+    from vdo_slam_tpu_torch.utils import profiling
+
+    m, cfg = tracked_map
+    cfg = cfg.replace(backend=dataclasses.replace(
+        cfg.backend, full_obs_cap=16384, full_ter_cap=8192,
+        full_point_cap=16384, full_motion_cap=64, full_smo_cap=64))
+    graphs = FullBAGraphs("cuda")
+    warmup_full_ba(cfg, m.num_frames, graphs)
+    reps = []
+    for gr in (graphs, None):
+        before = EH.LIN.launches
+        with profiling.recording() as rec:
+            rep = full_ba_inplace(copy.deepcopy(m), cfg, device="cuda",
+                                  graphs=gr)
+        assert rep["edges"]["obs"] and rep["edges"]["ter"]
+        want = 2 * (2 * rep["iters_run"] + len(rep["chunk_modes"]))
+        assert EH.LIN.launches - before == want
+        assert [c.value for c in rec.counted("full.lin_launches")] == [want]
+        reps.append(rep)
+    assert set(reps[0]["chunk_modes"]) == {"replay"}
+    assert set(reps[1]["chunk_modes"]) == {"eager"}
+    for r in graphs.records():
+        iters = int(r["name"].split("iters=")[1].split()[0])
+        assert r["kernel_launches_per_replay"]["EdgeLinearizeKernel"] == (
+            2 * (2 * iters + 1))

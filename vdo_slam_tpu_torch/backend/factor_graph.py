@@ -7,10 +7,15 @@ EdgeSE3, EdgeSE3PointXYZ, LandmarkMotionTernaryEdge, EdgeSE3Altitude;
 Levenberg with a Huber kernel).  One LM iteration is a handful of gathers,
 batched small products and `index_add_` segment sums; the full graph's
 normal equations are solved matrix-free with block-Jacobi PCG, the window
-graph's by a dense Schur complement.  On a card PCG's product H t and its
-preconditioner's apply are hand-written kernels, one launch per edge type
-and one per-vertex pass (ops/edge_hessian_cuda.py); on the CPU they are
-the plain ops.
+graph's by a dense Schur complement.  On a card the full graph's solve
+(`_lm`) runs on hand-written kernels where the edges are many: PCG's
+product H t and its preconditioner's apply (one launch per edge type and
+one per-vertex pass), and the linearisation and the cost and statistics
+of the observation and ternary edges (one launch per type); on the CPU
+they are the plain ops (ops/edge_hessian_cuda.py).  Those kernels sum with
+float atomics, so on a card the cost, the step and the accept test of a
+near-tie may differ between runs of one input in their last bits; on the
+CPU the solve is deterministic.
 
 What changes with eager PyTorch:
   * `Graph` and `Variables` are dataclasses of tensors; the builders fill
@@ -55,8 +60,14 @@ from torch.func import jacfwd, vmap
 from ..devices import device_list
 from ..geometry import se3
 from ..ops.edge_hessian_cuda import INCIDENCE as _INCIDENCE
-from ..ops.edge_hessian_cuda import block_jacobi, hessian_vector
-from ..ops.edge_hessian_cuda import jtu as _jtu
+from ..ops.edge_hessian_cuda import LARGE as _LARGE
+from ..ops.edge_hessian_cuda import (add_block_diag, add_gradient,
+                                     block_jacobi, edge_stats, edge_sums,
+                                     evaluate, hessian_vector, large_terms,
+                                     linearize, obs_residual, rho,
+                                     ter_residual, zero_blocks, zero_rows)
+from ..ops.edge_hessian_cuda import chi2 as _chi2
+from ..ops.edge_hessian_cuda import huber_w as _huber_w
 from ..ops.edge_hessian_cuda import seg as _seg
 from ..utils.cuda_graph import copy_out
 
@@ -233,39 +244,28 @@ def _se3_rel_residual(Minv, Ta, Tb):
     return se3.log(Minv @ se3.inv(Ta) @ Tb)
 
 
-def residuals(g: Graph, v: Variables):
-    """All edge residuals at the current estimate."""
-    Tp = v.poses[g.obs_pose]                    # (E,4,4)
-    Xp = v.points[g.obs_point]                  # (E,3)
-    r_obs = se3.apply(se3.inv(Tp), Xp) - g.obs_meas
-
+def _small_residuals(g: Graph, v: Variables):
+    """The residuals of the four small edge types: odo, pri, smo, alt."""
     r_odo = _se3_rel_residual(g.odo_meas_inv, v.poses[g.odo_a],
                               v.poses[g.odo_b])
     r_pri = se3.log(g.pri_meas_inv @ v.poses[g.pri_idx])
     r_smo = _se3_rel_residual(_eye(4, v.motions, g.smo_a.shape[0]),
                               v.motions[g.smo_a], v.motions[g.smo_b])
-    H = v.motions[g.ter_mot]
-    r_ter = v.points[g.ter_prev] - se3.apply(se3.inv(H), v.points[g.ter_cur])
     r_alt = v.motions[g.alt_mot][..., 1, 3:4]   # (Ea,1) t_y
-    return r_obs, r_odo, r_pri, r_smo, r_ter, r_alt
+    return r_odo, r_pri, r_smo, r_alt
 
 
-def _chi2(r, w):
-    return w * torch.sum(r * r, dim=-1)
-
-
-def _huber_w(r, w, delta, robust):
-    """IRLS weight multiplier per edge from information-weighted chi2."""
-    chi2 = _chi2(r, w)
-    if not robust:
-        return torch.ones_like(chi2)
-    # full_like: torch's scalar / tensor is a reciprocal then a product
-    return torch.where(chi2 <= delta * delta, 1.0,
-                       torch.full_like(chi2, delta)
-                       / torch.sqrt(torch.clamp(chi2, min=1e-24)))
+def residuals(g: Graph, v: Variables):
+    """All edge residuals at the current estimate."""
+    r_odo, r_pri, r_smo, r_alt = _small_residuals(g, v)
+    return (obs_residual(g, v), r_odo, r_pri, r_smo, ter_residual(g, v),
+            r_alt)
 
 
 EDGE_TYPES = ("obs", "odo", "pri", "smo", "ter", "alt")
+# the four small edge types, in _INCIDENCE's order (the gradient's and the
+# block diagonal's sums are taken in it)
+_SMALL = tuple(e for e in _INCIDENCE if e not in _LARGE)
 
 
 def _edge_delta(name: str, p: LMParams) -> float:
@@ -285,17 +285,8 @@ def edge_type_stats(g: Graph, v: Variables, p: LMParams):
     printout around each batch solve, Optimizer.cc:640-970 / 1938-2091):
     {type: {"n": active edges, "chi2": sum of weighted chi2, "n_inlier":
     edges with chi2 <= delta^2}}, as 0-dim tensors (no host sync)."""
-    out = {}
-    for name, r, w in zip(EDGE_TYPES, residuals(g, v), _weights(g)):
-        d = _edge_delta(name, p)
-        chi2 = _chi2(r, w)
-        active = w > 0
-        out[name] = {
-            "n": torch.sum(active.to(torch.int32)),
-            "chi2": torch.sum(torch.where(active, chi2, 0.0)),
-            "n_inlier": torch.sum((active & (chi2 <= d * d)).to(torch.int32)),
-        }
-    return out
+    return {name: edge_stats(_chi2(r, w), w, _edge_delta(name, p))
+            for name, r, w in zip(EDGE_TYPES, residuals(g, v), _weights(g))}
 
 
 def format_edge_stats(stats0, stats1) -> str:
@@ -318,40 +309,33 @@ def robust_cost(g: Graph, v: Variables, p: LMParams):
     """Total Huber-robustified cost (the LM acceptance criterion)."""
     total = 0.0
     for name, r, w in zip(EDGE_TYPES, residuals(g, v), _weights(g)):
-        chi2 = _chi2(r, w)
-        d = _edge_delta(name, p)
-        if p.robust:
-            rho = torch.where(
-                chi2 <= d * d, chi2,
-                2.0 * d * torch.sqrt(torch.clamp(chi2, min=1e-24)) - d * d)
-        else:
-            rho = chi2
-        total = total + torch.sum(rho)
+        total = total + torch.sum(rho(_chi2(r, w), _edge_delta(name, p),
+                                      p.robust))
     return total
 
 
+def _evaluate(g: Graph, v: Variables, p: LMParams) -> dict:
+    """robust_cost and edge_type_stats of g at v from ONE evaluation of its
+    edges: {"cost": ..., "stats": ...}.  The obs and ter edges go through
+    `evaluate` (one kernel launch per type on a card, the plain ops on the
+    CPU), the small types through the ops edge_type_stats takes."""
+    sums = evaluate(g, v, p.huber_delta, p.robust)
+    for name, r in zip(("odo", "pri", "smo", "alt"), _small_residuals(g, v)):
+        w = getattr(g, name + "_w")
+        sums[name] = edge_sums(r, w, _edge_delta(name, p), p.robust)
+    total = 0.0
+    for name in EDGE_TYPES:
+        total = total + sums[name]["rho"]
+    return {"cost": total,
+            "stats": {name: {k: sums[name][k]
+                             for k in ("n", "chi2", "n_inlier")}
+                      for name in EDGE_TYPES}}
+
+
 # --------------------------------------------------------------------------
-# edge Jacobian blocks (right-multiplicative retraction)
+# edge Jacobian blocks (right-multiplicative retraction); the obs and ter
+# blocks are ops/edge_hessian_cuda.py's obs_blocks and ter_blocks
 # --------------------------------------------------------------------------
-
-def _obs_blocks(g: Graph, v: Variables):
-    """J wrt pose tangent (3,6) and point (3,3 = R^T) for obs edges."""
-    Tp = v.poses[g.obs_pose]
-    R = Tp[..., :3, :3]
-    Y = se3.apply(se3.inv(Tp), v.points[g.obs_point])  # camera-frame point
-    Jw = se3.hat(Y)                                    # dr/domega = [Y]_x
-    Jv = -_eye(3, Y, Y.shape[0])                       # dr/dupsilon = -I
-    return torch.cat([Jw, Jv], dim=-1), R.transpose(-1, -2)
-
-
-def _ter_blocks(g: Graph, v: Variables):
-    H = v.motions[g.ter_mot]
-    RH = H[..., :3, :3]
-    Z = se3.apply(se3.inv(H), v.points[g.ter_cur])
-    eye = _eye(3, Z, Z.shape[0])
-    J_mot = torch.cat([-se3.hat(Z), eye], dim=-1)      # (Et,3,6)
-    return eye, -RH.transpose(-1, -2), J_mot
-
 
 def _edge_jac(r_fn, argnum, z, *args):
     """vmap(jacfwd(r_fn)) over edges: (E, 6) tangents -> (E, out, 6).
@@ -423,34 +407,49 @@ class Tangent:
                        self.points.to(device))
 
 
-def _linearize(g: Graph, v: Variables, p: LMParams):
-    """Residuals, IRLS-weighted edge weights, and Jacobian blocks."""
-    r_obs, r_odo, r_pri, r_smo, r_ter, r_alt = residuals(g, v)
-    d = p.huber_delta
+def _small_terms(g: Graph, v: Variables, p: LMParams):
+    """Residuals, IRLS-weighted edge weights and Jacobian blocks of the
+    four small edge types (odo, pri, smo, alt)."""
+    r_odo, r_pri, r_smo, r_alt = _small_residuals(g, v)
     dp = _edge_delta("odo", p)
     weights = dict(
-        obs=g.obs_w * _huber_w(r_obs, g.obs_w, d, p.robust),
         odo=g.odo_w * _huber_w(r_odo, g.odo_w, dp, p.robust),
         pri=g.pri_w,  # prior is not robustified (information 1e5/1e7)
         smo=g.smo_w * _huber_w(r_smo, g.smo_w, dp, p.robust),
-        ter=g.ter_w * _huber_w(r_ter, g.ter_w, d, p.robust),
         alt=g.alt_w,
     )
-    Jo_pose, Jo_pt = _obs_blocks(g, v)
-    Jt_prev, Jt_cur, Jt_mot = _ter_blocks(g, v)
     Jd_a, Jd_b = _rel_blocks(g.odo_meas_inv, v.poses[g.odo_a],
                              v.poses[g.odo_b])
     Js_a, Js_b = _rel_blocks(_eye(4, v.motions, g.smo_a.shape[0]),
                              v.motions[g.smo_a], v.motions[g.smo_b])
     blocks = dict(
-        Jo_pose=Jo_pose, Jo_pt=Jo_pt, Jt_prev=Jt_prev, Jt_cur=Jt_cur,
-        Jt_mot=Jt_mot, Jd_a=Jd_a, Jd_b=Jd_b, Js_a=Js_a, Js_b=Js_b,
+        Jd_a=Jd_a, Jd_b=Jd_b, Js_a=Js_a, Js_b=Js_b,
         Jp=_pri_blocks(g.pri_meas_inv, v.poses[g.pri_idx]),
         Ja=_alt_blocks(g, v),
     )
-    resid = dict(obs=r_obs, odo=r_odo, pri=r_pri, smo=r_smo, ter=r_ter,
-                 alt=r_alt)
+    resid = dict(odo=r_odo, pri=r_pri, smo=r_smo, alt=r_alt)
     return resid, weights, blocks
+
+
+def _linearize(g: Graph, v: Variables, p: LMParams):
+    """Residuals, IRLS-weighted edge weights, and Jacobian blocks."""
+    resid, weights, blocks = large_terms(g, v, p.huber_delta, p.robust)
+    r, w, b = _small_terms(g, v, p)
+    return {**resid, **r}, {**weights, **w}, {**blocks, **b}
+
+
+def _lin_sums(g: Graph, v: Variables, p: LMParams):
+    """What PCG takes from one linearisation of g at v: (weights, blocks,
+    gradient J^T W r, undamped block diagonal of J^T W J).  The obs and
+    ter edges go through `linearize` (one kernel launch per type on a
+    card, the plain ops on the CPU), whose sums the small types' are added
+    to, in _gradient's and _block_diag's order."""
+    weights, blocks, grad, diag = linearize(g, v, p.huber_delta, p.robust)
+    resid, w, b = _small_terms(g, v, p)
+    weights, blocks = {**weights, **w}, {**blocks, **b}
+    grad = add_gradient(grad, g, blocks, weights, resid, _SMALL)
+    diag = add_block_diag(diag, g, blocks, weights, _SMALL)
+    return weights, blocks, Tangent(*grad), diag
 
 
 def _matvec(g: Graph, blocks, weights, t: Tangent,
@@ -463,31 +462,14 @@ def _matvec(g: Graph, blocks, weights, t: Tangent,
 
 def _gradient(g: Graph, blocks, weights, resid, F, M, P) -> Tangent:
     """g = J^T W r."""
-    out = {"poses": resid["obs"].new_zeros(F, 6),
-           "motions": resid["obs"].new_zeros(M, 6),
-           "points": resid["obs"].new_zeros(P, 3)}
-    for edge, inc in _INCIDENCE.items():
-        u = resid[edge] * weights[edge][:, None]
-        for J, idx, kind in inc:
-            out[kind] = out[kind] + _seg(_jtu(blocks[J], u), getattr(g, idx),
-                                         out[kind].shape[0])
-    return Tangent(**out)
-
-
-def _outer(J, w):
-    return torch.einsum("eij,eik,e->ejk", J, J, w)
+    return Tangent(*add_gradient(zero_rows(resid["obs"], (F, M, P)), g,
+                                 blocks, weights, resid, _INCIDENCE))
 
 
 def _block_diag(g: Graph, blocks, weights, F, M, P):
     """Undamped block-Jacobi blocks of J^T W J: (poses, motions, points)."""
-    w0 = weights["obs"]
-    out = {"poses": w0.new_zeros(F, 6, 6), "motions": w0.new_zeros(M, 6, 6),
-           "points": w0.new_zeros(P, 3, 3)}
-    for edge, inc in _INCIDENCE.items():
-        for J, idx, kind in inc:
-            out[kind] = out[kind] + _seg(_outer(blocks[J], weights[edge]),
-                                         getattr(g, idx), out[kind].shape[0])
-    return out["poses"], out["motions"], out["points"]
+    return add_block_diag(zero_blocks(weights["obs"], (F, M, P)), g, blocks,
+                          weights, _INCIDENCE)
 
 
 def _damped_diag(D, lam, floor=1e-8):
@@ -585,31 +567,27 @@ def _lm(shards: list[Graph], v0: Variables, p: LMParams, lam0=None):
     live on v0's device (the first shard's).  Every per-edge sum is taken
     per shard and reduced by _psum; each shard reads a copy of the
     variables (and of each CG direction) on its device, which is the
-    variables themselves where the devices agree."""
+    variables themselves where the devices agree.  The edges are
+    evaluated once at v0 and once at each step (cost and statistics
+    together, _evaluate) and linearised once an iteration (_lin_sums); the
+    statistics of the accepted variables ride with the acceptance."""
     dev = v0.poses.device
     devs = [sh.obs_w.device for sh in shards]
-    F, M, P = v0.poses.shape[0], v0.motions.shape[0], v0.points.shape[0]
 
-    def cost(v):
-        return _psum([robust_cost(sh, vi, p)
+    def evaluate(v):
+        return _psum([_evaluate(sh, vi, p)
                       for sh, vi in zip(shards, [v.to(d) for d in devs])],
                      dev)
 
-    def stats(v):
-        return _psum([edge_type_stats(sh, vi, p)
-                      for sh, vi in zip(shards, [v.to(d) for d in devs])],
-                     dev)
-
-    cost0 = cost(v0)
-    v, c = v0, cost0
+    ev = evaluate(v0)
+    cost0, stats0 = ev["cost"], ev["stats"]
+    v, c, stats = v0, cost0, stats0
     lam = _lam(p, cost0) if lam0 is None else lam0
     history = []
     for _ in range(p.iters):
-        lins = [_linearize(sh, v.to(d), p) for sh, d in zip(shards, devs)]
-        grad = _psum([_gradient(sh, b, w, r, F, M, P)
-                      for sh, (r, w, b) in zip(shards, lins)], dev)
-        D = _psum([_block_diag(sh, b, w, F, M, P)
-                   for sh, (_, w, b) in zip(shards, lins)], dev)
+        lins = [_lin_sums(sh, v.to(d), p) for sh, d in zip(shards, devs)]
+        grad = _psum([gr for _, _, gr, _ in lins], dev)
+        D = _psum([diag for _, _, _, diag in lins], dev)
         damp = _damped_diag(D, lam)
         D_prec = _invert_precond(tuple(
             x + torch.diag_embed(dd)
@@ -618,17 +596,21 @@ def _lm(shards: list[Graph], v0: Variables, p: LMParams, lam0=None):
         def mv(t):
             # the damping joins the first shard's product, on dev
             return _psum([_matvec(sh, b, w, t.to(d), damp if i == 0 else None)
-                          for i, (sh, d, (_, w, b))
+                          for i, (sh, d, (w, b, _, _))
                           in enumerate(zip(shards, devs, lins))], dev)
 
         delta = _pcg(mv, lambda t: _apply_precond(D_prec, t),
                      grad.scale(-1.0), p.cg_iters)
         v_new = _retract_vars(v, delta)
-        v, lam, c = _accept(v_new, v, cost(v_new), c, lam, p)
+        ev = evaluate(v_new)
+        accept = ev["cost"] < c       # _accept's test
+        stats = _tree_map(lambda a, b: torch.where(accept, a, b),
+                          ev["stats"], stats)
+        v, lam, c = _accept(v_new, v, ev["cost"], c, lam, p)
         history.append(c)
     history = torch.stack(history) if history else cost0.new_zeros(0)
     return v, {"cost0": cost0, "cost": c, "history": history, "lam": lam,
-               "stats0": stats(v0), "stats": stats(v)}
+               "stats0": stats0, "stats": stats}
 
 
 def lm_solve(g: Graph, v0: Variables, p: LMParams, lam0=None):

@@ -246,7 +246,10 @@ def full_ba_inplace(m: MapState, cfg: VDOConfig, iters: int | None = None,
     each chunk ran, unit: its index); on a card also full.hv_launches, the
     edge Hessian kernel's launches while the solve ran (one per edge type
     with edges, per CG step, per shard: edge types x cg_iters x iters_run
-    on one device)."""
+    on one device), and full.lin_launches, the linearise and evaluate
+    kernels' (one per large edge type with edges, per linearisation and
+    per evaluation, per shard: 2 x (2 x iters_run + chunks) on one
+    device)."""
     devices = device_list(devices, device)
     if graphs is not None and [_card(d) for d in graphs.devices] != [
             _card(d) for d in devices]:
@@ -277,6 +280,7 @@ def _full_ba(m: MapState, cfg: VDOConfig, iters, devices,
     chunk_times = []
     modes = []
     hv0 = edge_hessian_cuda.KERNEL.launches
+    lin0 = edge_hessian_cuda.LIN.launches
     rec = profiling.ACTIVE
     open_chunk = []
 
@@ -324,6 +328,8 @@ def _full_ba(m: MapState, cfg: VDOConfig, iters, devices,
     if devices[0].type == "cuda":
         profiling.count("full.hv_launches",
                         edge_hessian_cuda.KERNEL.launches - hv0)
+        profiling.count("full.lin_launches",
+                        edge_hessian_cuda.LIN.launches - lin0)
     for i, mode in enumerate(modes):
         profiling.count("full.chunk", mode, i)
     t0 = time.perf_counter()

@@ -1,23 +1,32 @@
-"""Wrapper of the edge Hessian-vector kernels (csrc/edge_hessian.cu): the
-product H t = J^T W J t that the full BA's PCG takes at every step, and the
-block-Jacobi apply beside it.
+"""Wrapper of the edge Hessian kernels (csrc/edge_hessian.cu): the
+product H t = J^T W J t that the full BA's PCG takes at every step, the
+block-Jacobi apply beside it, and the linearisation and evaluation of the
+two large edge types (observations, ternary motion edges) around it.
 
   * `hessian_vector(g, blocks, weights, t, damp=None)`: (poses, motions,
     points) of H t, plus damp * t where `damp` is given;
-  * `block_jacobi(Dinv, r)`: each row block of r times its block of Dinv.
+  * `block_jacobi(Dinv, r)`: each row block of r times its block of Dinv;
+  * `linearize(g, v, delta, robust)`: the obs and ter edges' IRLS-weighted
+    weights and Jacobian blocks, and their sums J^T W r (the gradient) and
+    J^T W J (the undamped block diagonal) per vertex;
+  * `evaluate(g, v, delta, robust)`: the obs and ter edges' robust cost
+    and chi2 statistics.
 
-`g` is a factor graph (backend/factor_graph.py:Graph), `blocks` and
-`weights` what its linearisation leaves (`_linearize`), `t`, `damp` and
-`r` Tangents (anything with poses, motions and points) and `Dinv` the
-(poses, motions, points) blocks.  For CUDA tensors `hessian_vector` is one
-vertex-pass launch (its output set to damp * t, or to zeros) and one edge
-launch per edge type that has edges, all on torch's current stream;
-`block_jacobi` is one vertex-pass launch.  For CPU
-tensors each runs its plain version (`matvec_plain`, `damped_plain`,
-`precond_plain`), the solver's own ops.  Anything else raises: wrong
-dtypes, shapes that disagree, strides the kernels do not take, tensors on
-another device.  Indices are trusted to lie inside their vertex kind's
-rows, as the builders make them.
+`g` is a factor graph (backend/factor_graph.py:Graph), `v` its variables,
+`blocks` and `weights` what its linearisation leaves (`_linearize`), `t`,
+`damp` and `r` Tangents (anything with poses, motions and points) and
+`Dinv` the (poses, motions, points) blocks.  For CUDA tensors
+`hessian_vector` is one vertex-pass launch (its output set to damp * t, or
+to zeros) and one edge launch per edge type that has edges, all on torch's
+current stream; `block_jacobi` is one vertex-pass launch; `linearize` one
+launch per large edge type with edges and one vertex pass (the blocks'
+lower triangles), `evaluate` one launch per large edge type with edges.
+For CPU tensors each runs its plain version (`matvec_plain`,
+`damped_plain`, `precond_plain`, `linearize_plain`, `evaluate_plain`), the
+solver's own ops.  Anything else raises: wrong dtypes, shapes that
+disagree, strides the kernels do not take, tensors on another device.
+Indices are trusted to lie inside their vertex kind's rows, as the
+builders make them.
 
 The kernels replace no Pallas kernel; the source says why they were
 written, what bounds them and what their design does about it.  The shared
@@ -34,6 +43,7 @@ from pathlib import Path
 
 import torch
 
+from ..geometry import se3
 from . import nvcc_build
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "edge_hessian.cu"
@@ -56,6 +66,11 @@ INCIDENCE = {
 ROWS = {"obs": 3, "ter": 3, "odo": 6, "smo": 6, "pri": 6, "alt": 1}
 # the source's variant of each edge type (edge_hv_launch)
 _VARIANT = {"obs": 0, "ter": 1, "odo": 2, "smo": 2, "pri": 3, "alt": 4}
+# the edge types of `linearize` and `evaluate`, their variants there
+# (edge_lin_launch) and the rows their Jacobians are taken at
+LARGE = ("obs", "ter")
+_LIN_VARIANT = {"obs": 0, "ter": 1}
+_LIN_ROWS = {"obs": "poses", "ter": "motions"}
 
 
 # --------------------------------------------------------------------------
@@ -103,6 +118,159 @@ def precond_plain(Dinv, t) -> tuple:
     return (torch.einsum("nij,nj->ni", Dp, t.poses),
             torch.einsum("nij,nj->ni", Dm, t.motions),
             torch.einsum("nij,nj->ni", Dx, t.points))
+
+
+def outer(J, w):
+    return torch.einsum("eij,eik,e->ejk", J, J, w)
+
+
+def add_gradient(out: tuple, g, blocks, weights, resid, edges) -> tuple:
+    """out (poses, motions, points) + J^T W r over the incidences of
+    `edges`, taken in that order."""
+    out = dict(zip(KINDS, out))
+    for edge in edges:
+        u = resid[edge] * weights[edge][:, None]
+        for J, idx, kind in INCIDENCE[edge]:
+            out[kind] = out[kind] + seg(jtu(blocks[J], u), getattr(g, idx),
+                                        out[kind].shape[0])
+    return tuple(out[k] for k in KINDS)
+
+
+def add_block_diag(out: tuple, g, blocks, weights, edges) -> tuple:
+    """out (poses, motions, points) + the block diagonal of J^T W J over
+    the incidences of `edges`, taken in that order."""
+    out = dict(zip(KINDS, out))
+    for edge in edges:
+        for J, idx, kind in INCIDENCE[edge]:
+            out[kind] = out[kind] + seg(outer(blocks[J], weights[edge]),
+                                        getattr(g, idx), out[kind].shape[0])
+    return tuple(out[k] for k in KINDS)
+
+
+def zero_rows(like, n: tuple) -> tuple:
+    """Zero gradient rows of like's dtype and device for n = (F, M, P)
+    vertices: (F, 6), (M, 6), (P, 3)."""
+    return tuple(like.new_zeros(m, WIDTH[k]) for k, m in zip(KINDS, n))
+
+
+def zero_blocks(like, n: tuple) -> tuple:
+    """Zero block-diagonal blocks likewise: (F, 6, 6), (M, 6, 6),
+    (P, 3, 3)."""
+    return tuple(like.new_zeros(m, WIDTH[k], WIDTH[k])
+                 for k, m in zip(KINDS, n))
+
+
+def _counts(v) -> tuple:
+    return tuple(getattr(v, k).shape[0] for k in KINDS)
+
+
+def chi2(r, w):
+    return w * torch.sum(r * r, dim=-1)
+
+
+def huber_w(r, w, delta, robust):
+    """IRLS weight multiplier per edge from information-weighted chi2."""
+    c = chi2(r, w)
+    if not robust:
+        return torch.ones_like(c)
+    # full_like: torch's scalar / tensor is a reciprocal then a product
+    return torch.where(c <= delta * delta, 1.0,
+                       torch.full_like(c, delta)
+                       / torch.sqrt(torch.clamp(c, min=1e-24)))
+
+
+def rho(c, d, robust):
+    """The Huber cost of each edge's chi2 c (c itself where not robust)."""
+    if not robust:
+        return c
+    return torch.where(c <= d * d, c,
+                       2.0 * d * torch.sqrt(torch.clamp(c, min=1e-24))
+                       - d * d)
+
+
+def edge_stats(c, w, d) -> dict:
+    """Active edges (weight above 0), their summed chi2 and their inliers
+    (chi2 <= d^2), as 0-dim tensors."""
+    active = w > 0
+    return {
+        "n": torch.sum(active.to(torch.int32)),
+        "chi2": torch.sum(torch.where(active, c, 0.0)),
+        "n_inlier": torch.sum((active & (c <= d * d)).to(torch.int32)),
+    }
+
+
+def edge_sums(r, w, d, robust) -> dict:
+    """One edge type's summed Huber cost ("rho") and edge_stats."""
+    c = chi2(r, w)
+    return {"rho": torch.sum(rho(c, d, robust)), **edge_stats(c, w, d)}
+
+
+def obs_residual(g, v):
+    """inv(T) X - z of each observation."""
+    Tp = v.poses[g.obs_pose]                    # (E,4,4)
+    Xp = v.points[g.obs_point]                  # (E,3)
+    return se3.apply(se3.inv(Tp), Xp) - g.obs_meas
+
+
+def ter_residual(g, v):
+    """X_prev - inv(H) X_cur of each ternary motion edge."""
+    H = v.motions[g.ter_mot]
+    return v.points[g.ter_prev] - se3.apply(se3.inv(H), v.points[g.ter_cur])
+
+
+def _eye(n: int, like, batch: int):
+    return torch.eye(n, dtype=like.dtype, device=like.device).expand(
+        batch, n, n)
+
+
+def obs_blocks(g, v):
+    """J wrt pose tangent (3,6) and point (3,3 = R^T) for obs edges."""
+    Tp = v.poses[g.obs_pose]
+    R = Tp[..., :3, :3]
+    Y = se3.apply(se3.inv(Tp), v.points[g.obs_point])  # camera-frame point
+    Jw = se3.hat(Y)                                    # dr/domega = [Y]_x
+    Jv = -_eye(3, Y, Y.shape[0])                       # dr/dupsilon = -I
+    return torch.cat([Jw, Jv], dim=-1), R.transpose(-1, -2)
+
+
+def ter_blocks(g, v):
+    H = v.motions[g.ter_mot]
+    RH = H[..., :3, :3]
+    Z = se3.apply(se3.inv(H), v.points[g.ter_cur])
+    eye = _eye(3, Z, Z.shape[0])
+    J_mot = torch.cat([-se3.hat(Z), eye], dim=-1)      # (Et,3,6)
+    return eye, -RH.transpose(-1, -2), J_mot
+
+
+def large_terms(g, v, delta, robust):
+    """(residuals, IRLS-weighted weights, Jacobian blocks) of the obs and
+    ter edges, as dicts keyed like factor_graph._linearize's."""
+    r_obs, r_ter = obs_residual(g, v), ter_residual(g, v)
+    weights = {"obs": g.obs_w * huber_w(r_obs, g.obs_w, delta, robust),
+               "ter": g.ter_w * huber_w(r_ter, g.ter_w, delta, robust)}
+    Jo_pose, Jo_pt = obs_blocks(g, v)
+    Jt_prev, Jt_cur, Jt_mot = ter_blocks(g, v)
+    blocks = dict(Jo_pose=Jo_pose, Jo_pt=Jo_pt, Jt_prev=Jt_prev,
+                  Jt_cur=Jt_cur, Jt_mot=Jt_mot)
+    return {"obs": r_obs, "ter": r_ter}, weights, blocks
+
+
+def linearize_plain(g, v, delta, robust) -> tuple:
+    """(weights, blocks, gradient, block diagonal) of the obs and ter
+    edges: the gradient rows and blocks summed from zeros, obs then ter."""
+    resid, weights, blocks = large_terms(g, v, delta, robust)
+    n = _counts(v)
+    grad = add_gradient(zero_rows(v.points, n), g, blocks, weights, resid,
+                        LARGE)
+    diag = add_block_diag(zero_blocks(v.points, n), g, blocks, weights,
+                          LARGE)
+    return weights, blocks, grad, diag
+
+
+def evaluate_plain(g, v, delta, robust) -> dict:
+    """{"obs": edge_sums, "ter": edge_sums}."""
+    return {"obs": edge_sums(obs_residual(g, v), g.obs_w, delta, robust),
+            "ter": edge_sums(ter_residual(g, v), g.ter_w, delta, robust)}
 
 
 # --------------------------------------------------------------------------
@@ -168,6 +336,39 @@ def _device(t: tuple):
     return device
 
 
+def _check_array(name: str, x, dtype, tail: tuple, device,
+                 rows: int | None = None) -> None:
+    """x: a `dtype` tensor of shape (rows, *tail) (any rows where None) on
+    device, contiguous where it goes to a kernel."""
+    if not torch.is_tensor(x) or x.dtype != dtype:
+        raise TypeError(f"{name} must be a {dtype} tensor, got "
+                        f"{getattr(x, 'dtype', type(x).__name__)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, not {device}")
+    if (x.dim() != 1 + len(tail) or tuple(x.shape[1:]) != tail
+            or rows is not None and x.shape[0] != rows):
+        raise ValueError(f"{name} must be ({rows if rows is not None else 'n'}"
+                         f"{''.join(', ' + str(n) for n in tail)}), got "
+                         f"{tuple(x.shape)}")
+    if device.type == "cuda" and not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_large(g, v, device) -> None:
+    """The variables and the obs and ter edge fields that `linearize` and
+    `evaluate` read."""
+    for k, tail in (("poses", (4, 4)), ("motions", (4, 4)), ("points", (3,))):
+        _check_array(f"v.{k}", getattr(v, k), torch.float32, tail, device)
+    for edge in LARGE:
+        w = getattr(g, edge + "_w")
+        _check_array(f"{edge}_w", w, torch.float32, (), device)
+        for _, idx, _ in INCIDENCE[edge]:
+            _check_array(idx, getattr(g, idx), torch.int64, (), device,
+                         w.shape[0])
+    _check_array("obs_meas", g.obs_meas, torch.float32, (3,), device,
+                 g.obs_w.shape[0])
+
+
 # --------------------------------------------------------------------------
 # the kernels
 # --------------------------------------------------------------------------
@@ -196,6 +397,20 @@ class _Seg(ctypes.Structure):
 class _Vertex(ctypes.Structure):
     """struct VxArgs of the source, passed to the launch by value."""
     _fields_ = [("seg", _Seg * 3)]
+
+
+class _LinArgs(ctypes.Structure):
+    """struct LinArgs of the source, passed to the launch by value."""
+    _fields_ = [("w", ctypes.c_void_p), ("idx", ctypes.c_void_p * 3),
+                ("T", ctypes.c_void_p), ("X", ctypes.c_void_p),
+                ("meas", ctypes.c_void_p), ("w_out", ctypes.c_void_p),
+                ("J", ctypes.c_void_p * 3),
+                ("sJ", (ctypes.c_longlong * 3) * 3),
+                ("grad", ctypes.c_void_p * 3), ("diag", ctypes.c_void_p * 3),
+                ("n_rows", ctypes.c_longlong * 3), ("sums", ctypes.c_void_p),
+                ("counts", ctypes.c_void_p), ("n_edges", ctypes.c_longlong),
+                ("delta", ctypes.c_float), ("delta2", ctypes.c_float),
+                ("two_delta", ctypes.c_float), ("robust", ctypes.c_int)]
 
 
 class _Counted:
@@ -246,7 +461,8 @@ class EdgeHessianKernel(_Counted):
                 self.build_log = log
             lib = ctypes.CDLL(str(lib_path))
             for fn, size in ((lib.edge_hv_sizeof_edges, _Edges),
-                             (lib.edge_hv_sizeof_vertex, _Vertex)):
+                             (lib.edge_hv_sizeof_vertex, _Vertex),
+                             (lib.edge_lin_sizeof_args, _LinArgs)):
                 fn.restype = ctypes.c_int
                 if fn() != ctypes.sizeof(size):
                     raise RuntimeError(
@@ -257,6 +473,11 @@ class EdgeHessianKernel(_Counted):
             lib.edge_hv_launch.restype = ctypes.c_int
             lib.vertex_pass_launch.argtypes = [_Vertex, ctypes.c_void_p]
             lib.vertex_pass_launch.restype = ctypes.c_int
+            lib.edge_lin_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            _LinArgs, ctypes.c_void_p]
+            lib.edge_lin_launch.restype = ctypes.c_int
+            lib.mirror_launch.argtypes = [_Vertex, ctypes.c_void_p]
+            lib.mirror_launch.restype = ctypes.c_int
             t1 = time.time_ns()
             self.build_seconds = (t1 - t0) / 1e9
             # imported here: utils/ imports this module
@@ -292,7 +513,9 @@ class EdgeHessianKernel(_Counted):
 
 
 class VertexPassKernel(_Counted):
-    """The per-vertex pass (one launch over poses, motions and points)."""
+    """The per-vertex passes (one launch each over poses, motions and
+    points): the product's start and the block-Jacobi apply (`launch`),
+    and the lower triangles of the linearisation's blocks (`mirror`)."""
 
     def launch(self, out: tuple, x: tuple, d: tuple | None = None,
                A: tuple | None = None, stream: int = 0) -> bool:
@@ -317,8 +540,38 @@ class VertexPassKernel(_Counted):
         return True
 
 
+    def mirror(self, blocks: tuple, stream: int) -> bool:
+        """Each (n, w, w) block of (poses, motions, points) made symmetric
+        from its upper triangle, in place; one launch; False where there
+        are no rows (nothing launched)."""
+        args = _Vertex()
+        for k, (kind, b) in enumerate(zip(KINDS, blocks)):
+            args.seg[k] = _Seg(0, (ctypes.c_longlong * 3)(0, 0, 0), 0, 0,
+                               b.data_ptr(), b.shape[0], WIDTH[kind])
+        if not sum(b.numel() for b in blocks):
+            return False
+        err = KERNEL.build().mirror_launch(args, stream)
+        if err != 0:
+            raise RuntimeError(f"mirror_launch failed: cudaError_t {err}")
+        return True
+
+
+class EdgeLinearizeKernel(_Counted):
+    """The linearise and evaluate kernels of the obs and ter edges (one
+    launch per type with edges, per call), in KERNEL's library."""
+
+    def launch(self, edge: str, evaluate: bool, args: _LinArgs,
+               stream: int) -> None:
+        err = KERNEL.build().edge_lin_launch(_LIN_VARIANT[edge],
+                                             int(evaluate), args, stream)
+        if err != 0:
+            raise RuntimeError(f"edge_lin_launch ({edge}, evaluate="
+                               f"{evaluate}) failed: cudaError_t {err}")
+
+
 KERNEL = EdgeHessianKernel()
 VERTEX = VertexPassKernel()
+LIN = EdgeLinearizeKernel()
 
 
 def _vertex(x: tuple, **kw) -> tuple:
@@ -375,3 +628,94 @@ def block_jacobi(Dinv, r) -> tuple:
     if device.type == "cpu":
         return precond_plain(Dinv, r)
     return _vertex(x, A=tuple(Dinv))
+
+
+def _lin_args(edge: str, g, v, delta: float, robust: bool) -> _LinArgs:
+    """The fields of one large edge type's launch that both kernels read."""
+    w = getattr(g, edge + "_w")
+    args = _LinArgs(w=w.data_ptr(), T=getattr(v, _LIN_ROWS[edge]).data_ptr(),
+                    X=v.points.data_ptr(),
+                    meas=g.obs_meas.data_ptr() if edge == "obs" else None,
+                    n_edges=w.shape[0], delta=delta, delta2=delta * delta,
+                    two_delta=2.0 * delta, robust=int(robust))
+    for k, (_, idx, _) in enumerate(INCIDENCE[edge]):
+        args.idx[k] = getattr(g, idx).data_ptr()
+    return args
+
+
+def linearize(g, v, delta: float, robust: bool) -> tuple:
+    """(weights, blocks, gradient, block diagonal) of the obs and ter edges
+    at the variables v, Huber delta `delta` (module docstring): weights
+    {"obs", "ter"}, blocks {"Jo_pose", "Jo_pt", "Jt_prev", "Jt_cur",
+    "Jt_mot"}, the gradient J^T W r as rows (poses, motions, points) and
+    the undamped block diagonal of J^T W J as blocks (poses, motions,
+    points).  On a card each block written is a view of a component-major
+    buffer (edge stride 1), Jt_prev the expanded identity (edge stride 0),
+    and the blocks of a zero-weight edge are left unwritten: nothing reads
+    them."""
+    device = _device((v.poses,))
+    _check_large(g, v, device)
+    if device.type == "cpu":
+        return linearize_plain(g, v, delta, robust)
+    n = _counts(v)
+    grad, diag = zero_rows(v.points, n), zero_blocks(v.points, n)
+    weights = {edge: torch.empty_like(getattr(g, edge + "_w"))
+               for edge in LARGE}
+
+    def soa(E, W):
+        return torch.empty(3, W, E, dtype=torch.float32,
+                           device=device).permute(2, 0, 1)
+
+    E, Et = g.obs_w.shape[0], g.ter_w.shape[0]
+    blocks = {"Jo_pose": soa(E, 6), "Jo_pt": soa(E, 3),
+              "Jt_prev": _eye(3, g.ter_w, Et), "Jt_cur": soa(Et, 3),
+              "Jt_mot": soa(Et, 6)}
+    rows = dict(zip(KINDS, zip(grad, diag)))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
+        n = 0
+        for edge in LARGE:
+            if not weights[edge].shape[0]:
+                continue
+            args = _lin_args(edge, g, v, delta, robust)
+            args.w_out = weights[edge].data_ptr()
+            for k, (J, _, kind) in enumerate(INCIDENCE[edge]):
+                b = blocks[J]
+                if b.stride(0):  # written; the identity is not
+                    args.J[k] = b.data_ptr()
+                    args.sJ[k] = (ctypes.c_longlong * 3)(*b.stride())
+                args.grad[k] = rows[kind][0].data_ptr()
+                args.diag[k] = rows[kind][1].data_ptr()
+                args.n_rows[k] = rows[kind][0].shape[0]
+            LIN.launch(edge, False, args, stream)
+            n += 1
+        LIN._counted(n, capturing)
+        VERTEX._counted(int(VERTEX.mirror(diag, stream)), capturing)
+    return weights, blocks, grad, diag
+
+
+def evaluate(g, v, delta: float, robust: bool) -> dict:
+    """{"obs": sums, "ter": sums} at the variables v, Huber delta `delta`:
+    each edge type's summed Huber cost "rho", and its active edges "n"
+    (weight above 0), their summed "chi2" and their inliers "n_inlier"
+    (chi2 <= delta^2), as 0-dim tensors (the counts int64)."""
+    device = _device((v.poses,))
+    _check_large(g, v, device)
+    if device.type == "cpu":
+        return evaluate_plain(g, v, delta, robust)
+    sums = torch.zeros(len(LARGE), 2, dtype=torch.float32, device=device)
+    counts = torch.zeros(len(LARGE), 2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        n = 0
+        for i, edge in enumerate(LARGE):
+            if not getattr(g, edge + "_w").shape[0]:
+                continue
+            args = _lin_args(edge, g, v, delta, robust)
+            args.sums, args.counts = sums[i].data_ptr(), counts[i].data_ptr()
+            LIN.launch(edge, True, args, stream)
+            n += 1
+        LIN._counted(n, torch.cuda.is_current_stream_capturing())
+    return {edge: {"rho": sums[i, 0], "n": counts[i, 0], "chi2": sums[i, 1],
+                   "n_inlier": counts[i, 1]} for i, edge in enumerate(LARGE)}

@@ -60,7 +60,8 @@ from . import profiling
 Tensor = torch.Tensor
 
 # the kernels written by hand whose wrappers count launches
-KERNELS = (KERNEL, edge_hessian_cuda.KERNEL, edge_hessian_cuda.VERTEX)
+KERNELS = (KERNEL, edge_hessian_cuda.KERNEL, edge_hessian_cuda.VERTEX,
+           edge_hessian_cuda.LIN)
 # one capture at a time in the process: a capture on a solve thread and one
 # on the tracking thread never overlap
 _CAPTURE_LOCK = threading.Lock()
